@@ -1,0 +1,71 @@
+"""Carry the JAX package's state into the port's containers.
+
+The JAX side hands over plain data: `SceneArrays._asdict()` with numpy
+values, a Reconstruction's cameras / images / points as dicts of records
+(any objects with the reference's field names), and descriptor / mask
+dicts. Nothing here imports the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from dagsfm_tpu_torch import device as devmod
+from dagsfm_tpu_torch.features.matching import DescriptorBank, make_bank
+from dagsfm_tpu_torch.scene import cameras as cm
+from dagsfm_tpu_torch.scene.reconstruction import (ImageRecord, Point3DRecord,
+                                                   Reconstruction, SceneArrays,
+                                                   scene_arrays_from_numpy)
+
+
+def scene_arrays(fields: dict, device=None) -> SceneArrays:
+    """SceneArrays from the reference's `SceneArrays._asdict()`."""
+    return scene_arrays_from_numpy(
+        {k: np.asarray(v) for k, v in fields.items()}, devmod.resolve(device))
+
+
+def camera(c) -> cm.Camera:
+    return cm.Camera(int(c.camera_id), int(c.model_id), int(c.width),
+                     int(c.height), tuple(float(p) for p in c.params),
+                     prior_focal=bool(getattr(c, "prior_focal", True)))
+
+
+def image_record(im) -> ImageRecord:
+    return ImageRecord(
+        image_id=int(im.image_id), name=str(im.name),
+        camera_id=int(im.camera_id),
+        qvec=np.asarray(im.qvec, np.float64).copy(),
+        tvec=np.asarray(im.tvec, np.float64).copy(),
+        xys=np.asarray(im.xys, np.float64).copy(),
+        point3D_ids=np.asarray(im.point3D_ids, np.int64).copy(),
+        registered=bool(im.registered),
+        cluster_id=int(getattr(im, "cluster_id", -1)))
+
+
+def reconstruction(cameras: dict, images: dict, points3D: dict,
+                   next_point3D_id: int | None = None) -> Reconstruction:
+    """Port Reconstruction from the reference's cameras / images /
+    points3D dicts (same ids, same point order)."""
+    rec = Reconstruction()
+    for cid in cameras:
+        rec.add_camera(camera(cameras[cid]))
+    for iid in images:
+        rec.add_image(image_record(images[iid]))
+    for pid, pt in points3D.items():
+        rec.points3D[int(pid)] = Point3DRecord(
+            np.asarray(pt.xyz, np.float64).copy(),
+            np.asarray(pt.color, np.uint8).copy(), float(pt.error),
+            [(int(i), int(k)) for (i, k) in pt.track])
+    rec._next_point3D_id = (next_point3D_id if next_point3D_id is not None
+                            else max(rec.points3D, default=0) + 1)
+    return rec
+
+
+def descriptor_bank(descriptors: dict, masks: dict,
+                    image_ids: list | None = None,
+                    device=None) -> DescriptorBank:
+    """bf16 DescriptorBank from image_id -> (K, 128) / (K,) dicts."""
+    return make_bank({i: np.asarray(d, np.float32)
+                      for i, d in descriptors.items()},
+                     {i: np.asarray(m, bool) for i, m in masks.items()},
+                     image_ids, device=device)

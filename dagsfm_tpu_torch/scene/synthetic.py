@@ -1,0 +1,202 @@
+"""Deterministic synthetic scenes (numpy RNG: the same seed gives the same
+scene as dagsfm_tpu/scene/synthetic.py).
+
+Port of `SyntheticSceneSpec`, `generate`, `to_matching_problem`,
+`to_scene_arrays` and `pose_errors`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from dagsfm_tpu_torch.ops import rotations as rops
+from dagsfm_tpu_torch.ops.umeyama import umeyama_np
+from dagsfm_tpu_torch.scene import cameras as cm
+from dagsfm_tpu_torch.scene.reconstruction import (ImageRecord, Reconstruction,
+                                                   scene_arrays_from_numpy)
+from dagsfm_tpu_torch.sfm.correspondence_graph import CorrespondenceGraph
+
+
+@dataclasses.dataclass
+class SyntheticSceneSpec:
+    num_cameras: int = 20
+    num_points: int = 500
+    image_width: int = 1024
+    image_height: int = 768
+    focal: float = 1000.0
+    ring_radius: float = 10.0
+    ring_height_jitter: float = 1.0
+    point_cloud_extent: float = 4.0
+    pixel_noise: float = 0.0
+    outlier_fraction: float = 0.0
+    min_track_length: int = 2
+    max_track_length: int = 0   # 0 = unlimited
+    seed: int = 0
+    camera_model: str = "SIMPLE_PINHOLE"
+
+
+@dataclasses.dataclass
+class SyntheticScene:
+    spec: SyntheticSceneSpec
+    R: np.ndarray          # (I, 3, 3) world->cam
+    t: np.ndarray          # (I, 3)
+    points: np.ndarray     # (P, 3)
+    camera: cm.Camera
+    visible: np.ndarray    # (I, P) bool
+    pixels: np.ndarray     # (I, P, 2)
+    is_outlier: np.ndarray  # (I, P) bool
+
+    def centers(self) -> np.ndarray:
+        return np.einsum("nij,nj->ni", self.R.transpose(0, 2, 1), -self.t)
+
+
+def _look_at(center, target, up=(0.0, 0.0, 1.0)):
+    z = target - center
+    z = z / np.linalg.norm(z)
+    x = np.cross(z, np.asarray(up, np.float64))
+    nx = np.linalg.norm(x)
+    x = np.array([1.0, 0.0, 0.0]) if nx < 1e-9 else x / nx
+    y = np.cross(z, x)
+    R = np.stack([x, y, z], axis=0)
+    return R, -R @ center
+
+
+def generate(spec: SyntheticSceneSpec) -> SyntheticScene:
+    rng = np.random.default_rng(spec.seed)
+    P, I = spec.num_points, spec.num_cameras
+    points = rng.uniform(-spec.point_cloud_extent, spec.point_cloud_extent,
+                         size=(P, 3))
+    Rs, ts = [], []
+    for i in range(I):
+        ang = 2.0 * np.pi * i / I
+        center = np.array([
+            spec.ring_radius * np.cos(ang),
+            spec.ring_radius * np.sin(ang),
+            rng.uniform(-spec.ring_height_jitter, spec.ring_height_jitter),
+        ])
+        R, t = _look_at(center, rng.uniform(-0.5, 0.5, size=3))
+        Rs.append(R)
+        ts.append(t)
+    R = np.stack(Rs)
+    t = np.stack(ts)
+    camera = cm.make_simple_camera(1, spec.image_width, spec.image_height,
+                                   focal=spec.focal, model=spec.camera_model)
+    Xc = np.einsum("nij,pj->npi", R, points) + t[:, None, :]
+    z = Xc[..., 2]
+    in_front = z > 0.2
+    z_safe = np.where(np.abs(z) < 1e-9, 1e-9, z)
+    uv = Xc[..., :2] / z_safe[..., None]
+    fx, cx, cy = camera.params[0], camera.params[1], camera.params[2]
+    pix = uv * fx + np.array([cx, cy])
+    in_image = ((pix[..., 0] >= 0) & (pix[..., 0] < spec.image_width)
+                & (pix[..., 1] >= 0) & (pix[..., 1] < spec.image_height))
+    visible = in_front & in_image
+    if spec.max_track_length > 0:
+        score = rng.random(visible.shape)
+        score[~visible] = np.inf
+        order = np.argsort(score, axis=0)
+        rank = np.empty_like(order)
+        np.put_along_axis(
+            rank, order,
+            np.broadcast_to(np.arange(I)[:, None], visible.shape), axis=0)
+        visible = visible & (rank < spec.max_track_length)
+    if spec.pixel_noise > 0:
+        pix = pix + rng.normal(0.0, spec.pixel_noise, size=pix.shape)
+    is_outlier = np.zeros_like(visible)
+    if spec.outlier_fraction > 0:
+        flip = rng.random(visible.shape) < spec.outlier_fraction
+        is_outlier = visible & flip
+        rand_pix = np.stack([
+            rng.uniform(0, spec.image_width, visible.shape),
+            rng.uniform(0, spec.image_height, visible.shape),
+        ], axis=-1)
+        pix = np.where(is_outlier[..., None], rand_pix, pix)
+    ok = visible.sum(axis=0) >= spec.min_track_length
+    visible = visible & ok[None, :]
+    is_outlier = is_outlier & ok[None, :]
+    return SyntheticScene(spec=spec, R=R, t=t, points=points, camera=camera,
+                          visible=visible, pixels=pix, is_outlier=is_outlier)
+
+
+def to_scene_arrays(scene: SyntheticScene, device):
+    """SyntheticScene -> SceneArrays on `device` (every visible
+    observation of every point with a track of >= 2 views)."""
+    I, P = scene.visible.shape
+    pt_keep = scene.visible.sum(axis=0) >= max(2, scene.spec.min_track_length)
+    ii, pp = np.nonzero(scene.visible & pt_keep[None, :])
+    cam_params = np.zeros((1, cm.MAX_CAMERA_PARAMS))
+    cam_params[0, : len(scene.camera.params)] = scene.camera.params
+    return scene_arrays_from_numpy(dict(
+        cam_model_id=[scene.camera.model_id], cam_params=cam_params,
+        image_qvec=rops.rotmat_to_quat_np(scene.R), image_tvec=scene.t,
+        image_camidx=np.zeros(I), image_mask=np.ones(I, bool),
+        points_xyz=scene.points, points_mask=pt_keep,
+        obs_image=ii, obs_point=pp, obs_xy=scene.pixels[ii, pp],
+        obs_mask=np.ones(len(ii), bool)), device)
+
+
+def pose_errors(rec: Reconstruction, scene: SyntheticScene,
+                align: bool = True) -> dict:
+    """Rotation (deg) and center (ATE) errors against ground truth after a
+    Sim(3) Umeyama alignment of the camera centers."""
+    ids, est_C, gt_C, est_R = [], [], [], []
+    centers = scene.centers()
+    for i, img in sorted(rec.images.items()):
+        if not img.registered:
+            continue
+        k = i - 1
+        Rcw = rops.quat_to_rotmat_np(img.qvec)
+        est_R.append(Rcw)
+        est_C.append(-Rcw.T @ img.tvec)
+        gt_C.append(centers[k])
+        ids.append(k)
+    est_C, gt_C, est_R = np.stack(est_C), np.stack(gt_C), np.stack(est_R)
+    s, Rsim, tsim = 1.0, np.eye(3), np.zeros(3)
+    if align and len(ids) >= 3:
+        s, Rsim, tsim = umeyama_np(est_C, gt_C)
+    C_aligned = s * est_C @ Rsim.T + tsim
+    ate = np.sqrt(np.mean(np.sum((C_aligned - gt_C) ** 2, axis=-1)))
+    rot_errs = []
+    for n, k in enumerate(ids):
+        Rrel = (est_R[n] @ Rsim.T).T @ scene.R[k]
+        cos = np.clip((np.trace(Rrel) - 1) / 2, -1, 1)
+        rot_errs.append(np.degrees(np.arccos(cos)))
+    return {"ate": float(ate), "rot_err_deg_mean": float(np.mean(rot_errs)),
+            "rot_err_deg_max": float(np.max(rot_errs)), "num_reg": len(ids)}
+
+
+def to_matching_problem(scene: SyntheticScene, match_outlier_fraction=0.0,
+                        seed: int = 0):
+    """(cameras, images, graph) as if features had been matched: keypoint
+    k of image i is the k-th visible point, matches link keypoints of the
+    same 3D point (pairs with >= 8 common points)."""
+    rng = np.random.default_rng(seed)
+    I, P = scene.visible.shape
+    kp_index = np.full((I, P), -1, np.int64)
+    images = {}
+    for i in range(I):
+        vis = np.nonzero(scene.visible[i])[0]
+        kp_index[i, vis] = np.arange(len(vis))
+        images[i + 1] = ImageRecord(
+            image_id=i + 1, name=f"image{i + 1:05d}.jpg", camera_id=1,
+            qvec=np.array([1.0, 0, 0, 0]), tvec=np.zeros(3),
+            xys=scene.pixels[i, vis].copy(),
+            point3D_ids=np.full(len(vis), -1, np.int64))
+    graph = CorrespondenceGraph()
+    for i in range(I):
+        graph.add_image(i + 1, int(scene.visible[i].sum()))
+    for i in range(I):
+        for j in range(i + 1, I):
+            common = np.nonzero(scene.visible[i] & scene.visible[j])[0]
+            if len(common) < 8:
+                continue
+            m = np.stack([kp_index[i, common], kp_index[j, common]],
+                         axis=1).astype(np.uint32)
+            if match_outlier_fraction > 0:
+                bad = rng.random(len(m)) < match_outlier_fraction
+                m[bad, 1] = rng.integers(0, int(scene.visible[j].sum()),
+                                         bad.sum())
+            graph.add_matches(i + 1, j + 1, m)
+    return {1: scene.camera}, images, graph

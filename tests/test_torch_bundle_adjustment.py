@@ -1,0 +1,132 @@
+"""Port bundle adjustment vs the JAX reference (dense Schur LM, pinhole).
+
+The same SceneArrays go through both `make_problem`s: the kept
+observation set must be the same (Knuth-hash track decimation), the cost
+after one LM iteration equal to rtol 1e-9 (as __graft_entry__.entry's
+step), and the cost after a full solve to rtol 1e-6, because the two
+sum the normal equations in different orders."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from dagsfm_tpu.scene import synthetic as j_syn
+from dagsfm_tpu.sfm import bundle_adjustment as j_ba
+from dagsfm_tpu_torch import interop
+from dagsfm_tpu_torch.scene import cameras as t_cm
+from dagsfm_tpu_torch.sfm import bundle_adjustment as t_ba
+
+torch.set_num_threads(1)
+
+
+def _arrays(num_cameras=6, num_points=64, seed=0, noise=0.01):
+    """The graft entry's scene: ground truth with perturbed points."""
+    sc = j_syn.generate(j_syn.SyntheticSceneSpec(
+        num_cameras=num_cameras, num_points=num_points, pixel_noise=0.3,
+        seed=seed))
+    arrays, _ = j_syn.to_reconstruction(sc).to_arrays()
+    rng = np.random.default_rng(seed)
+    return arrays._replace(points_xyz=arrays.points_xyz + rng.normal(
+        0, noise, arrays.points_xyz.shape))
+
+
+def _both(arrays, const_image, max_track_len=16):
+    jp = j_ba.make_problem(arrays, max_track_len=max_track_len,
+                           const_image=const_image)
+    tp = t_ba.make_problem(interop.scene_arrays(arrays._asdict(),
+                                                device="cpu"),
+                           max_track_len=max_track_len,
+                           const_image=const_image)
+    return jp, tp
+
+
+def _obs_set(img, pt, xy, mask=None):
+    img, pt, xy = np.asarray(img), np.asarray(pt), np.asarray(xy)
+    if mask is not None:
+        m = np.asarray(mask)
+        img, pt, xy = img[m], pt[m], xy[m]
+    return sorted(zip(img.tolist(), pt.tolist(), xy[:, 0].tolist(),
+                      xy[:, 1].tolist()))
+
+
+@pytest.mark.parametrize("max_track_len", [16, 4, 3])
+def test_make_problem_keeps_the_same_observations(max_track_len):
+    arrays = _arrays(num_cameras=12, num_points=80, seed=3)
+    const = np.zeros(12, bool)
+    const[0] = True
+    jp, tp = _both(arrays, const, max_track_len)
+    ref = _obs_set(jp.obs_image, jp.obs_point, jp.obs_xy, jp.obs_mask)
+    port = _obs_set(tp.obs_image, tp.obs_point, tp.obs_xy)
+    assert port == ref
+    if max_track_len < 12:        # decimation exercised
+        assert len(port) < int(np.asarray(arrays.obs_mask).sum())
+    np.testing.assert_array_equal(tp.const_image.numpy(), const)
+
+
+@pytest.mark.parametrize("loss", ["cauchy", "huber", "trivial"])
+def test_one_lm_iteration_cost(loss):
+    arrays = _arrays()
+    const = np.zeros(arrays.image_qvec.shape[0], bool)
+    const[:2] = True
+    jp, tp = _both(arrays, const)
+    jo = j_ba.BAOptions(max_iterations=1, loss=loss, loss_scale=1.0)
+    to = t_ba.BAOptions(max_iterations=1, loss=loss, loss_scale=1.0)
+    _, js = j_ba.solve(jp, jo)
+    out, ts = t_ba.solve(tp, to)
+    assert ts.initial_cost == pytest.approx(float(js.initial_cost),
+                                            rel=1e-12)
+    assert ts.final_cost == pytest.approx(float(js.final_cost), rel=1e-9)
+    assert ts.final_cost < ts.initial_cost
+    assert ts.num_iterations == int(js.num_iterations) == 1
+    assert ts.lam == pytest.approx(float(js.lam), rel=1e-12)
+    assert float(t_ba.compute_cost(out, to)) == pytest.approx(
+        ts.final_cost, rel=1e-12)
+
+
+def test_solve_to_convergence():
+    arrays = _arrays(num_cameras=8, num_points=120, seed=1, noise=0.05)
+    arrays = arrays._replace(
+        image_tvec=arrays.image_tvec + np.random.default_rng(4).normal(
+            0, 0.02, arrays.image_tvec.shape))
+    const = np.zeros(8, bool)
+    const[0] = True
+    jp, tp = _both(arrays, const)
+    jout, js = jax.jit(lambda p: j_ba.solve(p, j_ba.BAOptions()))(jp)
+    tout, ts = t_ba.solve(tp, t_ba.BAOptions())
+    assert ts.final_cost == pytest.approx(float(js.final_cost), rel=1e-6)
+    assert ts.final_cost < 0.1 * ts.initial_cost      # 0.3 px noise floor
+    np.testing.assert_allclose(tout.image_tvec.numpy(),
+                               np.asarray(jout.image_tvec), atol=1e-6)
+    np.testing.assert_allclose(tout.points.numpy(), np.asarray(jout.points),
+                               atol=1e-5)
+    np.testing.assert_array_equal(tout.image_tvec[0].numpy(),
+                                  np.asarray(arrays.image_tvec[0]))
+    assert float(t_ba.mean_reproj_error_px(tout)) == pytest.approx(
+        float(j_ba.mean_reproj_error_px(jout)), rel=1e-6)
+
+
+def test_fixed_budget_runs_every_iteration():
+    """ftol = 0 and no max_iters: the reference's scan path runs all
+    max_iterations; so does the port."""
+    arrays = _arrays(seed=2)
+    jp, tp = _both(arrays, None)
+    jo = j_ba.BAOptions(max_iterations=4, ftol=0.0)
+    to = t_ba.BAOptions(max_iterations=4, ftol=0.0)
+    _, js = j_ba.solve(jp, jo)
+    _, ts = t_ba.solve(tp, to)
+    assert ts.num_iterations == int(js.num_iterations) == 4
+    assert ts.final_cost == pytest.approx(float(js.final_cost), rel=1e-8)
+
+
+def test_unported_regimes_raise():
+    arrays = interop.scene_arrays(_arrays()._asdict(), device="cpu")
+    tp = t_ba.make_problem(arrays)
+    with pytest.raises(NotImplementedError):
+        t_ba.solve(tp, t_ba.BAOptions(refine_focal=True))
+    with pytest.raises(NotImplementedError):
+        t_ba.solve(tp, t_ba.BAOptions(solver="iterative"))
+    refine = t_cm.intrinsics_refine_mask(
+        arrays.cam_model_id.numpy(), True, False, False)
+    with pytest.raises(NotImplementedError):
+        t_ba.solve(t_ba.make_problem(arrays, cam_refine=refine))
+    assert t_ba.all_pinhole(arrays)

@@ -1,0 +1,77 @@
+"""The port imports neither jax nor the JAX package (dagsfm_tpu).
+
+Runs in a subprocess where `jax` is unimportable and a meta-path hook
+refuses `dagsfm_tpu` and `dagsfm_tpu.*` — but not `dagsfm_tpu_torch`,
+whose name shares the prefix — then imports every port module and
+chip_smoke.py.
+"""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_GUARD = r"""
+import importlib, importlib.abc, pkgutil, sys
+sys.modules["jax"] = None
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "dagsfm_tpu" or name.startswith("dagsfm_tpu."):
+            raise ImportError("refused: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import dagsfm_tpu_torch
+names = ["dagsfm_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(dagsfm_tpu_torch.__path__,
+                                          "dagsfm_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m == "dagsfm_tpu" or m.startswith("dagsfm_tpu.")]
+assert not [m for m in bad if sys.modules[m] is not None], bad
+print("IMPORTED", len(names))
+"""
+
+
+def _run(code: str):
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_port_imports_without_jax_or_reference():
+    out = _run(_GUARD)
+    assert out.returncode == 0, out.stderr
+    n = int(out.stdout.split("IMPORTED")[-1])
+    import dagsfm_tpu_torch
+    expected = 1 + sum(1 for _ in pkgutil.walk_packages(
+        dagsfm_tpu_torch.__path__, "dagsfm_tpu_torch."))
+    assert n == expected >= 20
+
+
+def test_guard_refuses_the_reference():
+    """The hook itself works: the JAX package cannot be imported under it,
+    so the test above proves something."""
+    out = _run(_GUARD.split("import dagsfm_tpu_torch")[0]
+               + "import dagsfm_tpu.scene.synthetic\n")
+    assert out.returncode != 0
+    assert "refused: dagsfm_tpu" in out.stderr
+
+
+def test_port_sources_never_name_jax():
+    """No source line of the port or chip_smoke imports jax/dagsfm_tpu."""
+    import re
+    pat = re.compile(r"^\s*(import|from)\s+(jax|dagsfm_tpu)(\s|\.|$)")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, fs in os.walk(os.path.join(ROOT, "dagsfm_tpu_torch")):
+        files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
+    offenders = [f for f in files for line in open(f)
+                 if pat.match(line)]
+    assert not offenders, offenders

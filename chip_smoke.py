@@ -1,28 +1,42 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (dagsfm_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--num-images 100]
+    python3 chip_smoke.py [--num-images 100] [--max-features 8192]
+                          [--breakdown]
 
 Phases, each of which fails the run (non-zero exit, no result line) on
 any error:
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. the build: every kernel of the path compiled from csrc/ with nvcc
-     for sm_90a (build time, rebuilt or cached);
-  3. the kernels: each kernel against its plain PyTorch version on the
-     card at the main path's shapes (and ragged / masked variants),
-     timed with CUDA events beside its bound and a PyTorch yardstick;
-  4. the main path: a 100-image planted scene (one DAGSfM cluster)
+  2. the build: every kernel library compiled from csrc/ with nvcc for
+     sm_90a, one nvcc per source, all started together (build seconds,
+     rebuilt or cached);
+  3. the kernels: K1 (fused matcher), K2 (top2_batch), K3 (top2 and
+     match_one_pair) and K4 (mfu_variant, every mode) against their
+     plain PyTorch versions on the card, with ragged and masked inputs;
+     each timed with CUDA events beside its bound and one PyTorch call;
+  4. the tool path: dagsfm_tpu_torch.tools.matcher_mfu (K4's four modes
+     and K1 at B = 256, K = 1024);
+  5. the pixel path: 100 rendered 1024 x 768 images -> SIFT (8192
+     features) -> exhaustive matching -> full E/F/H verification with
+     guided matching -> mapping -> COLMAP model, scored against ground
+     truth;
+  6. the entry-point path: top2_batch and match_one_pair on the pixel
+     path's descriptors; then they, and K1 on the pixel path's first
+     128-pair batch, against their plain versions on the same inputs;
+  7. the planted path: a 100-image planted scene (one DAGSfM cluster)
      through FeaturePipeline.match_and_verify -> to_mapper_inputs ->
-     IncrementalMapper.reconstruct -> write_model_bin, with every kernel
-     launch counter zeroed just before and read just after, and the
-     model scored against ground truth.
-It prints a `kernels` JSON line, the card line and, last, the result.
+     IncrementalMapper.reconstruct -> write_model_bin, scored against
+     ground truth.
+Every kernel launch counter is zeroed just before each path and read
+just after it. It prints a `kernels` JSON line, the card line and, last,
+the result.
 
-The planted features (`plant_features`) are this script's test data:
-SIFT is not ported yet, so each image's keypoints are its visible scene
-points (in point order, as synthetic.to_matching_problem numbers them),
-then distractors at random pixels with random descriptors, then a
-masked-out tail. The CPU tests import them from here.
+`plant_features` makes the planted path's data: each image's keypoints
+are its visible scene points (in point order, as
+synthetic.to_matching_problem numbers them), then distractors at random
+pixels with random descriptors, then a masked-out tail. SIFT is ported
+now; the planted path stays as the fast path that isolates matching,
+verification and mapping from extraction. The CPU tests import it.
 """
 
 from __future__ import annotations
@@ -30,7 +44,6 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import subprocess
 import sys
 import tempfile
 import time
@@ -42,9 +55,12 @@ K_SLOTS = 1024           # keypoint slots per image on the main path
 DESC_NOISE = 0.02        # per-dimension descriptor noise of an observation
 MATCH_BATCH = 128        # pairs per matcher launch on the main path
 
-# H100 SXM published peaks (dense): bf16 tensor cores, HBM3
+# H100 SXM published peaks (dense): bf16 tensor cores, f32 FMA outside
+# the tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+TIE = 1e-6               # a "near tie": best and second within this
 
 
 def _unit(v: np.ndarray) -> np.ndarray:
@@ -108,32 +124,45 @@ def planted_pairs(B: int, K: int, seed: int, device):
             t(m1, torch.bool), t(m2, torch.bool))
 
 
-def _time_ms(fn, reps: int = 20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def _counts() -> dict:
+    """Every kernel's launch counter."""
+    from dagsfm_tpu_torch.ops import matcher_kernel as mk
+    from dagsfm_tpu_torch.ops import top2_matcher as tm
+    return {"fused_matcher": mk.launches,
+            "top2_batch": tm.top2_batch_launches,
+            "top2": tm.top2_launches, "mfu_variant": tm.mfu_launches}
 
 
-def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
+def _zero_counts() -> None:
+    from dagsfm_tpu_torch.ops import matcher_kernel as mk
+    from dagsfm_tpu_torch.ops import top2_matcher as tm
+    mk.launches = 0
+    tm.top2_batch_launches = tm.top2_launches = tm.mfu_launches = 0
+
+
+def _bound(flops: float, nbytes: float, peak_flops: float):
+    """(bound ms, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _entry(name, source, replaces, max_abs_err, ms, plain_ms, bound,
+           library_ms, **extra) -> dict:
+    return {"name": name, "status": "ported", "route": "cuda",
+            "source": source, "replaces": replaces, "launches": None,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms, **extra}
 
 
 def kernel_phase(mk, dev, card: str) -> dict:
     """K1 against its plain version; returns the kernels-line entry."""
-    print("== kernel phase: fused matcher vs plain version (tolerance: "
+    from dagsfm_tpu_torch.tools.matcher_mfu import time_ms
+    print("== kernel phase K1: fused matcher vs plain version (tolerance: "
           "none, the j arrays must be equal)", flush=True)
-    for K in (1024, 2048, 1000):
-        d1, d2, m1, m2 = planted_pairs(64, K, seed=K, device=dev)
+    for B, K in ((64, 1024), (64, 2048), (64, 1000)):
+        d1, d2, m1, m2 = planted_pairs(B, K, seed=K, device=dev)
         for cross in (True, False):
             j = mk.fused_match_j(d1, d2, m1, m2, cross_check=cross)
             ref = mk.fused_match_j_reference(d1, d2, m1, m2,
@@ -141,34 +170,187 @@ def kernel_phase(mk, dev, card: str) -> dict:
             torch.cuda.synchronize()
             diff = int((j != ref).sum())
             nmatch = int((ref >= 0).sum())
-            print(f"  B=64 K={K} cross_check={cross}: differing rows {diff}"
-                  f" of {64 * K}, matches {nmatch}", flush=True)
+            print(f"  B={B} K={K} cross_check={cross}: differing rows {diff}"
+                  f" of {B * K}, matches {nmatch}", flush=True)
             if diff:
                 raise AssertionError(f"fused matcher disagrees at K={K}")
-    # timing at the main path's shape: one launch per 128-pair batch
+        del d1, d2, m1, m2, j, ref
+    # timing at the planted path's shape: one launch per 128-pair batch
     B, K = MATCH_BATCH, K_SLOTS
     d1, d2, m1, m2 = planted_pairs(B, K, seed=7, device=dev)
     j = mk.fused_match_j(d1, d2, m1, m2)
     ref = mk.fused_match_j_reference(d1, d2, m1, m2)
     max_abs_err = float((j.long() - ref.long()).abs().max())
-    ms = _time_ms(lambda: mk.fused_match_j(d1, d2, m1, m2))
-    plain_ms = _time_ms(lambda: mk.fused_match_j_reference(d1, d2, m1, m2))
-    lib_ms = _time_ms(lambda: torch.bmm(d1, d2.transpose(1, 2)))
+    if max_abs_err:
+        raise AssertionError(f"fused matcher disagrees at B={B} K={K}")
+    ms = time_ms(lambda: mk.fused_match_j(d1, d2, m1, m2))
+    plain_ms = time_ms(lambda: mk.fused_match_j_reference(d1, d2, m1, m2))
+    lib_ms = time_ms(lambda: torch.bmm(d1, d2.transpose(1, 2)))
     flops = 2.0 * B * K * K * 128
-    nbytes = 2 * B * K * 128 * 2 + 2 * B * K + 4 * B * K
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound = _bound(flops, 2 * B * K * 128 * 2 + 2 * B * K + 4 * B * K,
+                   PEAK_BF16_FLOPS)
     print(f"  B={B} K={K} on {card}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
           f" ms, torch.bmm bf16 yardstick {lib_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})"
-          f", {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
-    return {"name": "fused_matcher", "status": "ported", "route": "cuda",
-            "source": "dagsfm_tpu_torch/csrc/fused_matcher.cu",
-            "replaces": "dagsfm_tpu/ops/pallas_matcher.py:246",
-            "launches": None, "max_abs_err": max_abs_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms}
+          f"{bound[0]:.4f} ms ({bound[1]}), {flops / ms / 1e9:.1f} TFLOP/s",
+          flush=True)
+    return _entry("fused_matcher", "dagsfm_tpu_torch/csrc/fused_matcher.cu",
+                  "dagsfm_tpu/ops/pallas_matcher.py:246", max_abs_err, ms,
+                  plain_ms, bound, lib_ms)
+
+
+def _hold(name: str, out, ref, scores) -> float:
+    """Kernel outputs (best, second, idx[, rev]) against the plain
+    version's: indices equal, best / second within 2e-6. Prints the
+    differing and near-tied counts; returns the largest score error."""
+    err = 0.0
+    for what, a, b in zip(("best", "second"), out[:2], ref[:2]):
+        fin = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), fin) or \
+                not torch.equal(a[~fin], b[~fin]):
+            raise AssertionError(f"{name}: {what} infinities differ")
+        if bool(fin.any()):
+            err = max(err, float((a[fin] - b[fin]).abs().max()))
+    top = torch.topk(scores, 2, dim=-1).values
+    ties_row = int(((top[..., 0] - top[..., 1]) < TIE).sum())
+    diff_idx = int((out[2] != ref[2]).sum())
+    msg = (f"differing idx {diff_idx}, near-tied rows {ties_row}")
+    if len(out) > 3:
+        topc = torch.topk(scores, 2, dim=-2).values
+        ties_col = int(((topc[..., 0, :] - topc[..., 1, :]) < TIE).sum())
+        diff_rev = int((out[3] != ref[3]).sum())
+        msg += f", differing rev {diff_rev}, near-tied columns {ties_col}"
+    else:
+        diff_rev = 0
+    print(f"  {name}: {msg}, max |best or second - plain| {err:.3g}",
+          flush=True)
+    if diff_idx or diff_rev or err > 2e-6:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def top2_phase(tm, dev, card: str) -> list:
+    """K2 and K4 (every mode) at B = 64, K in {1024, 2048, 1000}; K3 and
+    match_one_pair at (1024, 1024) and (1024, 2048); then each timed at
+    its timing shape. Returns the kernels-line entries of K2, K3, K4."""
+    from dagsfm_tpu_torch.tools.matcher_mfu import time_ms
+    print("== kernel phase K2 / K4: top2_batch and mfu_variant vs plain "
+          "versions (indices equal, best / second within 2e-6)", flush=True)
+    err2 = err4 = err3 = 0.0
+    for K in (1024, 2048, 1000):
+        d1, d2, m1, m2 = planted_pairs(64, K, seed=K + 1, device=dev)
+        out = tm.top2_batch(d1, d2, m1, m2)
+        ref = tm.top2_batch_reference(d1, d2, m1, m2)
+        torch.cuda.synchronize()
+        scores = tm.ordered_scores(d1.to(torch.bfloat16),
+                                   d2.to(torch.bfloat16))
+        masked = torch.where(m1[:, :, None] & m2[:, None, :], scores,
+                             -torch.inf)
+        print(f" B=64 K={K}:", flush=True)
+        err2 = max(err2, _hold("top2_batch", out, ref, masked))
+        for mode in range(4):
+            v = tm.mfu_variant(d1, d2, m1, m2, mode)
+            vref = tm.mfu_variant_reference(d1, d2, m1, m2, mode)
+            err4 = max(err4, _hold(f"mfu_variant mode {mode}", v, vref,
+                                   masked if mode == 3 else scores))
+            if mode == 3 and not all(torch.equal(a, b)
+                                     for a, b in zip(v, out)):
+                raise AssertionError("mfu_variant mode 3 != top2_batch")
+        del d1, d2, m1, m2, out, ref, scores, masked
+    print("== kernel phase K3: top2 and match_one_pair vs plain versions "
+          "(f32, TF32 off; indices equal, scores within 2e-6; matches "
+          "equal)", flush=True)
+    for K1, K2 in ((1024, 1024), (1024, 2048)):
+        # pair 1: planted_pairs masks every column of pair 0
+        d1, d2, m1, m2 = planted_pairs(2, K2, seed=K1 + K2, device=dev)
+        a = d1[1, :K1].float().contiguous()
+        b = d2[1].float().contiguous()
+        out = tm.top2(a, b)
+        ref = tm.top2_reference(a, b)
+        print(f" K1={K1} K2={K2}:", flush=True)
+        err3 = max(err3, _hold("top2", out, ref, tm.ordered_scores(a, b)))
+        mm, n = tm.match_one_pair(a, b, m1[1, :K1], m2[1])
+        rm, rn = tm.match_one_pair_reference(a, b, m1[1, :K1], m2[1])
+        diff = int((mm != rm).any(-1).sum())
+        print(f"  match_one_pair: {int(n)} matches, differing rows {diff}",
+              flush=True)
+        if diff or int(n) != int(rn) or int(n) == 0:
+            raise AssertionError("match_one_pair disagrees")
+
+    entries = []
+    B, K = 256, 1024                   # the reference tool's shape
+    d1, d2, m1, m2 = planted_pairs(B, K, seed=11, device=dev)
+    flops = 2.0 * B * K * K * 128
+    desc_b, mask_b, out_b = 2 * B * K * 128 * 2, 2 * B * K, 4 * B * K * 4
+    lib_ms = time_ms(lambda: torch.bmm(d1, d2.transpose(1, 2)))
+    ms2 = time_ms(lambda: tm.top2_batch(d1, d2, m1, m2))
+    plain2 = time_ms(lambda: tm.top2_batch_reference(d1, d2, m1, m2), 3)
+    bound2 = _bound(flops, desc_b + mask_b + out_b, PEAK_BF16_FLOPS)
+    print(f"  top2_batch B={B} K={K} on {card}: kernel {ms2:.4f} ms, plain "
+          f"{plain2:.4f} ms, torch.bmm bf16 yardstick {lib_ms:.4f} ms, "
+          f"bound {bound2[0]:.4f} ms ({bound2[1]}), "
+          f"{flops / ms2 / 1e9:.1f} TFLOP/s", flush=True)
+    entries.append(_entry(
+        "top2_batch", "dagsfm_tpu_torch/csrc/top2_matcher.cu",
+        "dagsfm_tpu/ops/pallas_matcher.py:157", err2, ms2, plain2, bound2,
+        lib_ms))
+    by_mode = {}
+    for mode in range(4):
+        ms = time_ms(lambda: tm.mfu_variant(d1, d2, m1, m2, mode))
+        pl = time_ms(lambda: tm.mfu_variant_reference(d1, d2, m1, m2,
+                                                       mode), 3)
+        bd = _bound(flops, desc_b + (mask_b if mode == 3 else 0) + out_b,
+                    PEAK_BF16_FLOPS)
+        by_mode[mode] = (ms, pl, bd)
+        print(f"  mfu_variant mode {mode} B={B} K={K} on {card}: kernel "
+              f"{ms:.4f} ms, plain {pl:.4f} ms, bound {bd[0]:.4f} ms "
+              f"({bd[1]})", flush=True)
+    ms4, plain4, bound4 = by_mode[3]
+    entries.append(_entry(
+        "mfu_variant", "dagsfm_tpu_torch/csrc/top2_matcher.cu",
+        "tools/matcher_mfu.py:30", err4, ms4, plain4, bound4, lib_ms,
+        ms_by_mode={str(m): v[0] for m, v in by_mode.items()}))
+    del d1, d2, m1, m2
+    # K3 at 1024 x 1024 f32; the yardstick is torch.mm with TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d1, d2, _, _ = planted_pairs(1, 2048, seed=13, device=dev)
+    a = d1[0, :1024].float().contiguous()
+    b = d2[0, :1024].float().contiguous()
+    ms3 = time_ms(lambda: tm.top2(a, b))
+    plain3 = time_ms(lambda: tm.top2_reference(a, b))
+    lib3 = time_ms(lambda: torch.mm(a, b.T))
+    flops3 = 2.0 * 1024 * 1024 * 128
+    bound3 = _bound(flops3, 2 * 1024 * 128 * 4 + 3 * 1024 * 4,
+                    PEAK_F32_FLOPS)
+    print(f"  top2 1024 x 1024 f32 on {card}: kernel {ms3:.4f} ms, plain "
+          f"{plain3:.4f} ms, torch.mm f32 (TF32 off) yardstick {lib3:.4f} "
+          f"ms, bound {bound3[0]:.4f} ms ({bound3[1]}, f32 FMA peak)",
+          flush=True)
+    entries.append(_entry(
+        "top2", "dagsfm_tpu_torch/csrc/top2_matcher.cu",
+        "dagsfm_tpu/ops/pallas_matcher.py:28", err3, ms3, plain3, bound3,
+        lib3))
+    return entries
+
+
+def tool_path(card: str) -> dict:
+    """The port of tools/matcher_mfu.py as a user runs it; returns the
+    launch counts of its run."""
+    from dagsfm_tpu_torch.tools import matcher_mfu
+    print("== tool path: python -m dagsfm_tpu_torch.tools.matcher_mfu",
+          flush=True)
+    _zero_counts()                                    # counts zeroed
+    record = matcher_mfu.run()
+    counts = _counts()                                # counts read
+    for name, r in record["variants"].items():
+        print(f"  {name}: {r['ms_per_call']:.4f} ms, "
+              f"{r['pairs_per_s']:.0f} pairs/s, "
+              f"{r['achieved_tflops']:.2f} TFLOP/s, "
+              f"{r['peak_share_pct']:.3f} % of the bf16 peak, on {card}",
+              flush=True)
+    print(f"  launches: {counts}", flush=True)
+    if counts["mfu_variant"] == 0 or counts["fused_matcher"] == 0:
+        raise AssertionError("the tool path launched no K4 / K1")
+    return counts
 
 
 # Functions whose inclusive time `--breakdown` reports, in call order.
@@ -255,19 +437,47 @@ def _profile_5pt(dev, card: str) -> None:
               f"{e.self_cpu_time_total / 1e3:.3f} ms", flush=True)
 
 
-def main_path(mk, dev, card: str, num_images: int,
-              breakdown: bool = False) -> int:
-    """The slice end to end; returns the matcher launch count. With
+def _write_and_gate(rec, sc, n: int, ate_max: float, rot_max: float):
+    """Write the COLMAP model and read it back, then hold the
+    reconstruction to its gate: n/n registered, ATE < ate_max, mean
+    rotation error < rot_max degrees, the model read back whole and
+    finite. Returns (pose errors, write + read seconds)."""
+    from dagsfm_tpu_torch.scene import io as scene_io
+    from dagsfm_tpu_torch.scene import synthetic
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_io.write_model_bin(rec, tmp)
+        back = scene_io.read_model_bin(tmp)
+    secs = time.perf_counter() - t0
+    err = synthetic.pose_errors(rec, sc)
+    print(f"  registered {err['num_reg']}/{n}, points {rec.num_points3D()}, "
+          f"ATE {err['ate']:.6f}, rotation error mean "
+          f"{err['rot_err_deg_mean']:.6f} deg, max "
+          f"{err['rot_err_deg_max']:.6f} deg", flush=True)
+    if err["num_reg"] != n or err["ate"] >= ate_max \
+            or err["rot_err_deg_mean"] >= rot_max:
+        raise AssertionError(f"reconstruction out of limits: {err}")
+    if back.num_reg_images() != n or \
+            len(back.points3D) != rec.num_points3D():
+        raise AssertionError("COLMAP model did not read back whole")
+    for p in back.points3D.values():
+        if not np.all(np.isfinite(p.xyz)):
+            raise AssertionError("non-finite point in the written model")
+    return err, secs
+
+
+def main_path(dev, card: str, num_images: int,
+              breakdown: bool = False) -> dict:
+    """The planted path end to end; returns its launch counts. With
     `breakdown`, the BREAKDOWN functions are timed on the way."""
     from dagsfm_tpu_torch.features import matching as fm
     from dagsfm_tpu_torch.pipeline.feature_pipeline import (
         FeaturePipeline, FeaturePipelineOptions)
-    from dagsfm_tpu_torch.scene import io as scene_io
     from dagsfm_tpu_torch.scene import synthetic
     from dagsfm_tpu_torch.sfm.incremental_mapper import (IncrementalMapper,
                                                          MapperOptions)
 
-    print(f"== main path: {num_images} images, K={K_SLOTS}", flush=True)
+    print(f"== planted path: {num_images} images, K={K_SLOTS}", flush=True)
     spec = synthetic.SyntheticSceneSpec(
         num_cameras=num_images, num_points=40 * num_images, pixel_noise=0.3,
         seed=2, max_track_length=12)
@@ -284,7 +494,7 @@ def main_path(mk, dev, card: str, num_images: int,
     n_batches = math.ceil(n_pairs / MATCH_BATCH)
 
     torch.cuda.synchronize()
-    mk.launches = 0                                   # counts zeroed
+    _zero_counts()                                    # counts zeroed
     stats = _install_timers() if breakdown else {}
     t0 = time.perf_counter()
     fp.match_and_verify()
@@ -294,79 +504,226 @@ def main_path(mk, dev, card: str, num_images: int,
                             device=dev).reconstruct()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        scene_io.write_model_bin(rec, tmp)
-        back = scene_io.read_model_bin(tmp)
-    launches = mk.launches                            # counts read
-    t3 = time.perf_counter()
-
-    err = synthetic.pose_errors(rec, sc)
+    print(f"  pairs {n_pairs}, matcher batches {n_batches}; verified pairs "
+          f"{len(fp.two_view)}", flush=True)
+    err, t_model = _write_and_gate(rec, sc, num_images, 0.05, 0.2)
+    counts = _counts()                                # counts read
+    launches = counts["fused_matcher"]
     tm = fp.timings
-    print(f"  pairs {n_pairs}, matcher batches {n_batches}, kernel launches "
-          f"{launches}; verified pairs {len(fp.two_view)}", flush=True)
-    print(f"  registered {err['num_reg']}/{num_images}, points "
-          f"{rec.num_points3D()}, ATE {err['ate']:.6f}, rotation error mean "
-          f"{err['rot_err_deg_mean']:.6f} deg, max "
-          f"{err['rot_err_deg_max']:.6f} deg", flush=True)
-    print(f"  on {card}: matching {tm['matching']:.3f} s "
-          f"({n_pairs / tm['matching']:.1f} pairs/s), verification "
-          f"{tm['verification']:.3f} s ({len(fp.two_view)} pairs verified, "
+    print(f"  kernel launches {launches}; on {card}: matching "
+          f"{tm['matching']:.3f} s ({n_pairs / tm['matching']:.1f} "
+          f"pairs/s), verification {tm['verification']:.3f} s ({len(fp.two_view)} pairs verified, "
           f"{len(fp.two_view) / tm['verification']:.1f} pairs/s), mapping "
           f"{t2 - t1:.3f} s ({err['num_reg'] / (t2 - t1):.3f} images/s), "
-          f"model write+read {t3 - t2:.3f} s, end to end {t3 - t0:.3f} s",
-          flush=True)
+          f"model write+read {t_model:.3f} s, end to end "
+          f"{t2 - t0 + t_model:.3f} s", flush=True)
     for name, (calls, secs) in stats.items():
         print(f"  breakdown on {card} (synchronised timers): {name}: "
               f"{calls} calls, {secs:.3f} s", flush=True)
     if launches != n_batches:
         raise AssertionError(f"matcher launches {launches} != batches "
                              f"{n_batches}")
-    if err["num_reg"] != num_images or err["ate"] >= 0.05 \
-            or err["rot_err_deg_mean"] >= 0.2:
-        raise AssertionError(f"reconstruction out of limits: {err}")
-    if back.num_reg_images() != num_images or \
-            len(back.points3D) != rec.num_points3D():
-        raise AssertionError("COLMAP model did not read back whole")
-    for p in back.points3D.values():
-        if not np.all(np.isfinite(p.xyz)):
-            raise AssertionError("non-finite point in the written model")
-    return launches
+    return counts
+
+
+def pixel_path(dev, card: str, num_images: int, max_features: int,
+               W: int = 1024, H: int = 768):
+    """Rendered pixels to a COLMAP model: returns (launch counts, the
+    FeaturePipeline)."""
+    from dagsfm_tpu_torch.features import sift
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import (
+        FeaturePipeline, FeaturePipelineOptions)
+    from dagsfm_tpu_torch.scene import cameras
+    from dagsfm_tpu_torch.scene import synthetic
+    from dagsfm_tpu_torch.ops import two_view_classify as tvc
+    from dagsfm_tpu_torch.sfm.incremental_mapper import (IncrementalMapper,
+                                                         MapperOptions)
+
+    f = 480.0 * W / 448                               # 1097 at W = 1024
+    print(f"== pixel path: {num_images} rendered {W} x {H} images, SIFT "
+          f"max_num_features={max_features}, full E/F/H, guided matching",
+          flush=True)
+    # tests/test_e2e_pixels.py's scene at one cluster of images and a
+    # 1024 x 768 camera (1097 = 480 * 1024 / 448 keeps its field of view)
+    spec = synthetic.SyntheticSceneSpec(
+        num_cameras=num_images, num_points=50, image_width=W,
+        image_height=H, focal=f, seed=4, ring_radius=9.0,
+        point_cloud_extent=3.5, ring_height_jitter=0.3)
+    sc = synthetic.generate(spec)
+    t0 = time.perf_counter()
+    images = synthetic.render_images(sc, device=dev)
+    torch.cuda.synchronize()
+    print(f"  set-up: rendering {time.perf_counter() - t0:.3f} s on {card}",
+          flush=True)
+    cams = {i: cameras.make_simple_camera(i, W, H, focal=f) for i in images}
+    opts = FeaturePipelineOptions(guided_matching=True,
+                                  two_view_essential_only=False)
+    opts.sift = sift.SiftOptions(max_num_features=max_features)
+    fp = FeaturePipeline(images, cams, opts, device=dev)
+    ids = sorted(images)
+    n_pairs = len(ids) * (len(ids) - 1) // 2
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()                                    # counts zeroed
+    t0 = time.perf_counter()
+    fp.extract_features()
+    fp.match_and_verify()
+    cams2, imgs2, graph = fp.to_mapper_inputs()
+    t1 = time.perf_counter()
+    tm_ = fp.timings
+    kp = [int(fp.masks[i].sum()) for i in ids]
+    configs = {}
+    for r in fp.two_view.values():
+        name = tvc.CONFIG_NAMES[r.config]
+        configs[name] = configs.get(name, 0) + 1
+    print(f"  keypoints per image: mean {np.mean(kp):.1f}, min {min(kp)}, "
+          f"max {max(kp)}, slots {fp.bank.desc.shape[1]}; pairs {n_pairs}, "
+          f"K1 launches {_counts()['fused_matcher']}; verified pairs "
+          f"{len(fp.two_view)} {configs}; inlier matches after guided "
+          f"matching {sum(r.num_inliers for r in fp.two_view.values())}",
+          flush=True)
+    print(f"  on {card}: extraction {tm_['extraction']:.3f} s "
+          f"({num_images / tm_['extraction']:.2f} images/s), matching "
+          f"{tm_['matching']:.3f} s ({n_pairs / tm_['matching']:.1f} "
+          f"pairs/s), verification with guided matching "
+          f"{tm_['verification']:.3f} s ({fp.num_classified} pairs "
+          f"classified, {fp.num_classified / tm_['verification']:.2f}"
+          f" pairs/s; guided matching {tm_['guided_matching']:.3f} s of it)",
+          flush=True)
+    rec = IncrementalMapper(cams2, imgs2, graph, MapperOptions(seed=0),
+                            device=dev).reconstruct()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    err, t_model = _write_and_gate(rec, sc, num_images, 0.1, 1.0)
+    counts = _counts()                                # counts read
+    print(f"  on {card}: mapping {t2 - t1:.3f} s "
+          f"({err['num_reg'] / (t2 - t1):.3f} images/s), model write+read "
+          f"{t_model:.3f} s, end to end {t2 - t0 + t_model:.3f} s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          "GiB", flush=True)
+    if counts["fused_matcher"] != math.ceil(n_pairs / MATCH_BATCH):
+        raise AssertionError(f"pixel path: K1 launches {counts}")
+    return counts, fp
+
+
+def entry_path(fp, dev, card: str) -> dict:
+    """top2_batch (K2) on 64 ring-neighbour pairs of the pixel path's
+    bank and match_one_pair (K3) on its first pair, as a user calls them;
+    then each, and K1 on the first 128-pair batch the pixel path matched,
+    held against its plain version on the same inputs."""
+    from dagsfm_tpu_torch.ops import matcher_kernel as mk
+    from dagsfm_tpu_torch.ops import top2_matcher as tm
+
+    bank = fp.bank
+
+    def batch(pairs):
+        i1 = torch.tensor([bank.slot[a] for a, _ in pairs], device=dev)
+        i2 = torch.tensor([bank.slot[b] for _, b in pairs], device=dev)
+        return bank.desc[i1], bank.desc[i2], bank.mask[i1], bank.mask[i2]
+
+    ids = sorted(fp.images)
+    ring = [(ids[k], ids[k + 1]) for k in range(min(64, len(ids) - 1))]
+    d1, d2, m1, m2 = batch(ring)
+    a, b = ring[0]
+    fa, fb, ma, mb = (torch.as_tensor(x, device=dev) for x in (
+        fp.descriptors[a], fp.descriptors[b], fp.masks[a], fp.masks[b]))
+    print(f"== entry-point path: top2_batch on {len(ring)} pairs, "
+          f"match_one_pair on {ring[0]}, K={d1.shape[1]}", flush=True)
+    torch.cuda.synchronize()
+    _zero_counts()                                    # counts zeroed
+    t0 = time.perf_counter()
+    out = tm.top2_batch(d1, d2, m1, m2)
+    matches, n = tm.match_one_pair(fa, fb, ma, mb)
+    torch.cuda.synchronize()
+    counts = _counts()                                # counts read
+    print(f"  {time.perf_counter() - t0:.3f} s on {card}; match_one_pair "
+          f"{int(n)} matches; launches {counts}", flush=True)
+
+    print("  held against the plain versions on the same inputs (indices "
+          "equal, best / second within 2e-6, matches equal):", flush=True)
+    sim = tm.ordered_scores(d1, d2)
+    _hold("top2_batch", out, tm.top2_batch_reference(d1, d2, m1, m2),
+          torch.where(m1[:, :, None] & m2[:, None, :], sim, -torch.inf))
+    del out, sim
+    rm, rn = tm.match_one_pair_reference(fa, fb, ma, mb)
+    diff = int((matches != rm).any(-1).sum())
+    print(f"  match_one_pair: differing rows {diff}", flush=True)
+    if diff or int(n) != int(rn) or int(n) == 0:
+        raise AssertionError("match_one_pair disagrees on the pixel path")
+    first = fp.select_pairs()[:MATCH_BATCH]
+    d1, d2, m1, m2 = batch(first)
+    j = mk.fused_match_j(d1, d2, m1, m2)
+    ref = mk.fused_match_j_reference(d1, d2, m1, m2)
+    diff = int((j != ref).sum())
+    print(f"  fused matcher, the pixel path's first batch (B={len(first)}, "
+          f"K={d1.shape[1]}): differing rows {diff}, matches "
+          f"{int((ref >= 0).sum())}", flush=True)
+    if diff:
+        raise AssertionError("fused matcher disagrees on the pixel path")
+    return counts
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--num-images", type=int, default=100)
+    ap.add_argument("--num-images", type=int, default=100,
+                    help="images of the planted path")
+    ap.add_argument("--max-features", type=int, default=8192,
+                    help="SIFT max_num_features on the pixel path")
     ap.add_argument("--breakdown", action="store_true",
-                    help="time the main path's inner functions (with a "
+                    help="time the planted path's inner functions (with a "
                          "sync around each) and profile one 5-point solve")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
 
+    from dagsfm_tpu_torch.ops import cuda_build
     from dagsfm_tpu_torch.ops import matcher_kernel as mk
+    from dagsfm_tpu_torch.ops import top2_matcher as tm
+    from dagsfm_tpu_torch.tools.matcher_mfu import card_line
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
-    card = _card_line()
+    card = card_line()
     print(f"== card: {card}; torch device {torch.cuda.get_device_name(0)}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
+    cuda_build.load("fused_matcher", "top2_matcher")  # both nvcc at once
     mk.load_library()
-    print(f"== build: fused_matcher {'rebuilt' if mk.build_info['rebuilt'] else 'cached'}"
-          f" in {time.perf_counter() - t0:.2f} s -> {mk.build_info['path']}",
-          flush=True)
-    if mk.build_info.get("ptxas"):
-        print("  " + mk.build_info["ptxas"].replace("\n", "\n  "), flush=True)
+    tm.load_library()
+    print(f"== build: {time.perf_counter() - t0:.2f} s", flush=True)
+    for name, info in cuda_build.build_info.items():
+        print(f"  {name}: {'rebuilt' if info['rebuilt'] else 'cached'} in "
+              f"{info['seconds']:.2f} s -> {info['path']}", flush=True)
+        if info.get("ptxas"):
+            print("  " + info["ptxas"].replace("\n", "\n  "), flush=True)
 
-    entry = kernel_phase(mk, dev, card)
+    k1 = kernel_phase(mk, dev, card)
+    k2, k4, k3 = top2_phase(tm, dev, card)
+    tool = tool_path(card)
+    if args.max_features != 8192:
+        print(f"== pixel path cut to max_num_features {args.max_features} "
+              "(default 8192)", flush=True)
+    pixel, fp = pixel_path(dev, card, 100, args.max_features)
+    entry = entry_path(fp, dev, card)
+    del fp
     if args.num_images != 100:
-        print(f"== main path cut to {args.num_images} images (default 100)",
-              flush=True)
+        print(f"== planted path cut to {args.num_images} images (default "
+              "100)", flush=True)
     if args.breakdown:
         _profile_5pt(dev, card)
-    entry["launches"] = main_path(mk, dev, card, args.num_images,
-                                  args.breakdown)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    planted = main_path(dev, card, args.num_images, args.breakdown)
+    paths = {"tool": tool, "planted": planted, "pixel": pixel,
+             "entry": entry}
+    for e, path in ((k1, "pixel"), (k2, "entry"), (k3, "entry"),
+                    (k4, "tool")):
+        e["launches"] = paths[path][e["name"]]
+        e["launches_by_path"] = {p: c[e["name"]] for p, c in paths.items()}
+        if not e["launches"]:
+            raise AssertionError(f"{e['name']} never launched on its path")
+    print(f"== whole run {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

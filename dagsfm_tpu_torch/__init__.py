@@ -4,17 +4,21 @@ The JAX package `dagsfm_tpu` is the reference; this package mirrors its
 subpackages and module names so each counterpart sits at the same path.
 It imports `torch` and numpy only — never `jax`, never `dagsfm_tpu`.
 
-Ported so far (the per-cluster reconstruction from extracted features):
-  ops/       — rotations, polynomials, triangulation, epipolar (E only),
+Ported so far (the per-cluster reconstruction from rendered pixels):
+  ops/       — rotations, polynomials, triangulation, epipolar (E, F, H),
                RANSAC with injectable sampling, Umeyama, P3P + pose
-               refinement, projection, essential-only two-view
-               classification, and the fused matcher kernel (CUDA, csrc/)
+               refinement, projection, E/F/H two-view classification,
+               NaN-on-failure solves, and every TPU kernel as CUDA
+               (csrc/): the fused matcher K1 and the top-2 matchers
+               K2-K4, built by ops/cuda_build.py
   scene/     — pinhole cameras, reconstruction containers, COLMAP .bin
-               I/O, synthetic scenes
-  features/  — descriptor bank + exhaustive pair matching
+               I/O, synthetic scenes and rendered images
+  features/  — SIFT, descriptor bank, exhaustive pair matching, guided
+               matching
   sfm/       — correspondence graph, dense-Schur bundle adjustment,
                incremental mapper
-  pipeline/  — FeaturePipeline (match + verify + mapper inputs)
+  pipeline/  — FeaturePipeline (extract + match + verify + mapper inputs)
+  tools/     — matcher_mfu, the matcher's stage split on the card
   interop.py — turns the JAX package's state (numpy / dicts) into the
                port's containers
 

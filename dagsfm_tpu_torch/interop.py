@@ -2,8 +2,10 @@
 
 The JAX side hands over plain data: `SceneArrays._asdict()` with numpy
 values, a Reconstruction's cameras / images / points as dicts of records
-(any objects with the reference's field names), and descriptor / mask
-dicts. Nothing here imports the JAX package.
+(any objects with the reference's field names), descriptor / mask
+dicts, options as plain dicts (`NamedTuple._asdict()`,
+`dataclasses.asdict`) and SIFT outputs as numpy arrays. Nothing here
+imports the JAX package.
 """
 
 from __future__ import annotations
@@ -11,7 +13,9 @@ from __future__ import annotations
 import numpy as np
 
 from dagsfm_tpu_torch import device as devmod
+from dagsfm_tpu_torch.features import sift
 from dagsfm_tpu_torch.features.matching import DescriptorBank, make_bank
+from dagsfm_tpu_torch.ops import two_view_classify as tvc
 from dagsfm_tpu_torch.scene import cameras as cm
 from dagsfm_tpu_torch.scene.reconstruction import (ImageRecord, Point3DRecord,
                                                    Reconstruction, SceneArrays,
@@ -69,3 +73,36 @@ def descriptor_bank(descriptors: dict, masks: dict,
                       for i, d in descriptors.items()},
                      {i: np.asarray(m, bool) for i, m in masks.items()},
                      image_ids, device=device)
+
+
+# options of the reference's SIFT that select one of its TPU sampling
+# routes; the port has one route (gathers), so they carry no meaning here
+_SIFT_ROUTE_KEYS = ("patch_sampling", "patch_chunk")
+
+
+def sift_options(fields: dict) -> sift.SiftOptions:
+    """SiftOptions from the reference's `SiftOptions._asdict()`."""
+    return sift.SiftOptions(**{k: v for k, v in fields.items()
+                               if k not in _SIFT_ROUTE_KEYS})
+
+
+def two_view_options(fields: dict) -> tvc.TwoViewOptions:
+    """TwoViewOptions from the reference's `dataclasses.asdict(...)`."""
+    return tvc.TwoViewOptions(**fields)
+
+
+def sift_features(fields: dict, device=None) -> sift.SiftFeatures:
+    """SiftFeatures from numpy arrays under the reference's field names."""
+    dev = devmod.resolve(device)
+    return sift.SiftFeatures(**{
+        k: devmod.as_tensor(np.asarray(v), dev,
+                            dtype=None if k in ("mask", "score") else
+                            devmod.DTYPE)
+        for k, v in fields.items()})
+
+
+def to_numpy(result):
+    """A tuple of tensors (e.g. `two_view_classify._efh_batched`'s
+    outputs) as a tuple of numpy arrays; numpy and None pass through."""
+    return tuple(r.detach().cpu().numpy() if hasattr(r, "detach") else r
+                 for r in result)

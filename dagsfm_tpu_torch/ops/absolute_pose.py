@@ -11,6 +11,7 @@ import torch
 
 from dagsfm_tpu_torch.ops import polynomials as poly
 from dagsfm_tpu_torch.ops import rotations as rops
+from dagsfm_tpu_torch.ops import solve as lin
 from dagsfm_tpu_torch.ops import umeyama as ume
 
 
@@ -123,7 +124,7 @@ def refine_pose(R, t, points, uv, mask, num_iters: int = 20,
         w = (1.0 / (1.0 + r2 / (loss_scale ** 2))) * maskf
         JtJ = torch.einsum("n,nri,nrj->ij", w, J, J) + 1e-8 * eye6
         Jtr = torch.einsum("n,nri,nr->i", w, J, r)
-        delta = -torch.linalg.solve(JtJ, Jtr)
+        delta = -lin.solve_or_nan(JtJ, Jtr)
         q = rops.quat_normalize(rops.quat_multiply(
             rops.angleaxis_to_quat(delta[:3]), q))
         t = t + delta[3:]

@@ -1,18 +1,21 @@
-"""Essential-matrix geometry: 5-/8-point solvers, Sampson error, pose.
+"""Two-view epipolar geometry: E/F/H solvers, residuals, pose from E.
 
-Port of the essential-matrix half of dagsfm_tpu/ops/epipolar.py (F7, F8
-and H wait for a later slice). Points are normalized image coordinates.
-Every function broadcasts over leading batch dims: where the reference
-vmaps one minimal problem, the port writes the (pairs, hypotheses) batch
-out as dimensions.
+Port of dagsfm_tpu/ops/epipolar.py. Points are normalized image
+coordinates for E, pixels for F and H (Hartley-normalized inside). Every
+function broadcasts over leading batch dims: where the reference vmaps
+one minimal problem, the port writes the (pairs, hypotheses) batch out as
+dimensions.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from dagsfm_tpu_torch.ops import polynomials as poly
+from dagsfm_tpu_torch.ops import solve as lin
 
 
 def _epipolar_rows(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -113,7 +116,7 @@ def essential_5pt(x1: torch.Tensor, x2: torch.Tensor, max_solutions: int = 10):
     F_vals = _essential_constraints(Es)                     # (..., 20, 10)
     Vinv = torch.as_tensor(_V_INV, dtype=A.dtype, device=A.device)
     M = (Vinv @ F_vals).transpose(-1, -2)                   # (..., 10, 20)
-    C = torch.linalg.solve(M[..., :10], M[..., 10:])        # (..., 10, 10)
+    C = lin.solve_or_nan(M[..., :10], M[..., 10:])          # (..., 10, 10)
 
     def _shift_mul_z(c):
         z0 = torch.zeros_like(c[..., :1])
@@ -159,6 +162,106 @@ def essential_5pt(x1: torch.Tensor, x2: torch.Tensor, max_solutions: int = 10):
     return Emods, valid
 
 
+def _hartley_normalize(pts: torch.Tensor, mask=None):
+    """Center (..., N, 2) points and scale them to mean distance sqrt(2)
+    (over the masked points). Returns (pts, T (..., 3, 3))."""
+    w = (torch.ones(pts.shape[:-1], dtype=pts.dtype, device=pts.device)
+         if mask is None else mask.to(pts.dtype))
+    wsum = torch.clamp(w.sum(-1), min=1e-12)
+    mean = (pts * w[..., None]).sum(-2) / wsum[..., None]
+    centered = pts - mean[..., None, :]
+    dist = torch.sqrt(torch.sum(centered ** 2, dim=-1))
+    mean_dist = (dist * w).sum(-1) / wsum
+    s = math.sqrt(2.0) / torch.clamp(mean_dist, min=1e-12)
+    T = torch.zeros(pts.shape[:-2] + (3, 3), dtype=pts.dtype,
+                    device=pts.device)
+    T[..., 0, 0] = s
+    T[..., 1, 1] = s
+    T[..., 2, 2] = 1.0
+    T[..., 0, 2] = -s * mean[..., 0]
+    T[..., 1, 2] = -s * mean[..., 1]
+    return centered * s[..., None, None], T
+
+
+def fundamental_8pt(x1: torch.Tensor, x2: torch.Tensor, mask=None):
+    """F from >= 8 pixel correspondences (..., N, 2), Hartley-normalized,
+    projected to rank 2, scaled to |F[2, 2]| = 1. Returns (F (..., 1, 3,
+    3), valid (..., 1))."""
+    n1, T1 = _hartley_normalize(x1, mask)
+    n2, T2 = _hartley_normalize(x2, mask)
+    A = _epipolar_rows(n1, n2)
+    if mask is not None:
+        A = A * mask.to(A.dtype)[..., :, None]
+    f = _smallest_eigvec(A.transpose(-1, -2) @ A)
+    F = f.reshape(f.shape[:-1] + (3, 3))
+    U, S, Vt = torch.linalg.svd(F)
+    S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
+    F = (U * S[..., None, :]) @ Vt
+    F = T2.transpose(-1, -2) @ F @ T1
+    F = F / torch.clamp(torch.abs(F[..., 2:3, 2:3]), min=1e-12)
+    valid = torch.ones(F.shape[:-2] + (1,), dtype=torch.bool, device=F.device)
+    return F[..., None, :, :], valid
+
+
+def fundamental_7pt(x1: torch.Tensor, x2: torch.Tensor):
+    """F from exactly 7 correspondences (..., 7, 2): the roots of the
+    cubic det(l F1 + F2) = 0 over the 2-dim nullspace. Returns (F (..., 3,
+    3, 3), valid (..., 3))."""
+    A = _epipolar_rows(x1, x2)
+    N2 = _nullspace_k(A, 2)
+    F1 = N2[..., :, 0].reshape(N2.shape[:-2] + (3, 3))
+    F2 = N2[..., :, 1].reshape(N2.shape[:-2] + (3, 3))
+    ls = torch.tensor([-1.0, 0.0, 1.0, 2.0], dtype=A.dtype, device=A.device)
+    vals = torch.linalg.det(ls[:, None, None] * F1[..., None, :, :]
+                            + F2[..., None, :, :])          # (..., 4)
+    V = torch.stack([ls ** 3, ls ** 2, ls, torch.ones_like(ls)], dim=-1)
+    coeffs = torch.linalg.solve(V, vals[..., None])[..., 0]
+    lam, lvalid = poly.solve_cubic_all(coeffs[..., 0], coeffs[..., 1],
+                                       coeffs[..., 2], coeffs[..., 3])
+    Fs = lam[..., None, None] * F1[..., None, :, :] + F2[..., None, :, :]
+    norm = torch.linalg.norm(Fs.flatten(-2), dim=-1)
+    return Fs / torch.clamp(norm, min=1e-12)[..., None, None], lvalid
+
+
+def essential_from_fundamental(F, K1, K2):
+    """E = K2ᵀ F K1."""
+    return K2.transpose(-1, -2) @ F @ K1
+
+
+def fundamental_from_essential(E, K1, K2):
+    return torch.linalg.inv(K2.transpose(-1, -2)) @ E @ torch.linalg.inv(K1)
+
+
+def homography_dlt(x1: torch.Tensor, x2: torch.Tensor, mask=None):
+    """H (x2 ~ H x1) from >= 4 correspondences (..., N, 2): the exact
+    nullspace of the minimal 8 x 9 system, or the least-squares solution
+    over the masked points. Returns (H (..., 1, 3, 3), valid (..., 1))."""
+    n1, T1 = _hartley_normalize(x1, mask)
+    n2, T2 = _hartley_normalize(x2, mask)
+    u1, v1 = n1[..., 0], n1[..., 1]
+    u2, v2 = n2[..., 0], n2[..., 1]
+    zero = torch.zeros_like(u1)
+    one = torch.ones_like(u1)
+    r1 = torch.stack([-u1, -v1, -one, zero, zero, zero,
+                      u1 * u2, v1 * u2, u2], dim=-1)
+    r2 = torch.stack([zero, zero, zero, -u1, -v1, -one,
+                      u1 * v2, v1 * v2, v2], dim=-1)
+    A = torch.cat([r1, r2], dim=-2)
+    if mask is not None:
+        m2 = torch.cat([mask, mask], dim=-1).to(A.dtype)
+        A = A * m2[..., :, None]
+        h = _smallest_eigvec(A.transpose(-1, -2) @ A)
+    else:
+        h = _nullspace_k(A, 1)[..., 0]
+    H = h.reshape(h.shape[:-1] + (3, 3))
+    H = torch.linalg.inv(T2) @ H @ T1
+    h22 = H[..., 2:3, 2:3]
+    H = H / torch.where(torch.abs(h22) < 1e-12, torch.full_like(h22, 1e-12),
+                        h22)
+    valid = torch.ones(H.shape[:-2] + (1,), dtype=torch.bool, device=H.device)
+    return H[..., None, :, :], valid
+
+
 def sampson_error(F: torch.Tensor, x1: torch.Tensor,
                   x2: torch.Tensor) -> torch.Tensor:
     """Squared Sampson distance. F (..., 3, 3); x1, x2 (..., N, 2);
@@ -172,6 +275,27 @@ def sampson_error(F: torch.Tensor, x1: torch.Tensor,
     den = (Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2
            + Ftx2[..., 0] ** 2 + Ftx2[..., 1] ** 2)
     return num / torch.clamp(den, min=1e-18)
+
+
+def epipolar_line_error(F, x1, x2):
+    """Squared point-to-epipolar-line distance in image 2."""
+    ones = torch.ones_like(x1[..., :1])
+    p1 = torch.cat([x1, ones], dim=-1)
+    p2 = torch.cat([x2, ones], dim=-1)
+    l2 = p1 @ F.transpose(-1, -2)
+    num = torch.sum(p2 * l2, dim=-1) ** 2
+    den = l2[..., 0] ** 2 + l2[..., 1] ** 2
+    return num / torch.clamp(den, min=1e-18)
+
+
+def homography_error(H, x1, x2):
+    """Squared transfer error |x2 - H x1|². H (..., 3, 3); x1, x2 (..., N,
+    2); leading dims broadcast. Returns (..., N)."""
+    ones = torch.ones_like(x1[..., :1])
+    q = torch.cat([x1, ones], dim=-1) @ H.transpose(-1, -2)
+    w = q[..., 2:]
+    w = torch.where(torch.abs(w) < 1e-12, torch.full_like(w, 1e-12), w)
+    return torch.sum((q[..., :2] / w - x2) ** 2, dim=-1)
 
 
 def decompose_essential(E: torch.Tensor):

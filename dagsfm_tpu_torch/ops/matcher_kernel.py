@@ -8,68 +8,27 @@ loaded with ctypes; see the .cu file for the design and its bound.
 `fused_match_j` launches the kernel for CUDA tensors and runs the plain
 PyTorch version (`fused_match_j_reference`) only for CPU tensors; for a
 CUDA tensor it launches or raises, never falls back.
+`match_pair_batch_fused` is the counterpart of `pallas_match_pair_batch`:
+the same kernel, with (B, K, 2) matches out.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "fused_matcher.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+from dagsfm_tpu_torch.ops import cuda_build
 
 launches = 0          # kernel launches (one per fused_match_j on a GPU)
-build_info: dict = {}  # {"path", "rebuilt", "seconds"} after the first load
-_lib = None
-
-
-def _nvcc() -> str:
-    cand = [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
-    for c in cand:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: the fused matcher kernel needs the "
-                       "CUDA toolkit to build")
 
 
 def load_library():
     """Build (when the source hash changed) and load the kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:16]
-    so = _BUILD_DIR / f"fused_matcher_{digest}.so"
-    t0 = time.perf_counter()
-    rebuilt = not so.exists()
-    if rebuilt:
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        build_info["ptxas"] = proc.stderr.strip()
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.fused_match_j_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_int]
-                   + [ctypes.c_void_p] * 6)
-    fn.restype = ctypes.c_int
-    build_info.update(path=str(so), rebuilt=rebuilt,
-                      seconds=time.perf_counter() - t0)
-    _lib = lib
+    lib = cuda_build.load("fused_matcher")["fused_matcher"]
+    cuda_build.set_signature(lib.fused_match_j_launch, 4,
+                             [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                              ctypes.c_float, ctypes.c_int], 6)
     return lib
 
 
@@ -111,21 +70,14 @@ def fused_match_j(d1, d2, m1, m2, max_ratio: float = 0.8,
                                        max_distance, cross_check)
     if d1.device.type != "cuda":
         raise ValueError(f"fused_match_j: unsupported device {d1.device}")
-    B, K, D = d1.shape
-    for name, t, dt, shape in (("d1", d1, torch.bfloat16, (B, K, 128)),
-                               ("d2", d2, torch.bfloat16, (B, K, 128)),
-                               ("m1", m1, torch.bool, (B, K)),
-                               ("m2", m2, torch.bool, (B, K))):
-        if t.device != d1.device:
-            raise ValueError(f"fused_match_j: {name} on {t.device}, "
-                             f"d1 on {d1.device}")
-        if t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(f"fused_match_j: {name} must be {dt} {shape}, "
-                             f"got {t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_match_j: {name} must be contiguous")
-    if d1.data_ptr() % 16 or d2.data_ptr() % 16:
-        raise ValueError("fused_match_j: descriptors must be 16-byte aligned")
+    if d1.dim() != 3:
+        raise ValueError("fused_match_j: d1 must be (B, K, 128)")
+    B, K, _ = d1.shape
+    cuda_build.check_tensors("fused_match_j", (
+        ("d1", d1, torch.bfloat16, (B, K, 128)),
+        ("d2", d2, torch.bfloat16, (B, K, 128)),
+        ("m1", m1, torch.bool, (B, K)),
+        ("m2", m2, torch.bool, (B, K))), d1.device)
     lib = load_library()
     dev = d1.device
     best = torch.empty((B, K), dtype=torch.float32, device=dev)
@@ -144,3 +96,15 @@ def fused_match_j(d1, d2, m1, m2, max_ratio: float = 0.8,
         raise RuntimeError(f"fused_match_j: CUDA launch error {err}")
     launches += 1
     return j
+
+
+def match_pair_batch_fused(d1, d2, m1, m2, max_ratio: float = 0.8,
+                           max_distance: float = 0.7,
+                           cross_check: bool = True):
+    """Batched matcher on the fused kernel (`pallas_match_pair_batch`):
+    (matches (B, K, 2) int32 with -1 pads, num_matches (B,))."""
+    j = fused_match_j(d1, d2, m1, m2, max_ratio, max_distance, cross_check)
+    ok = j >= 0
+    k_idx = torch.arange(j.shape[1], device=j.device).expand(j.shape)
+    matches = torch.stack([torch.where(ok, k_idx, -1), j.long()], dim=-1)
+    return matches.to(torch.int32), ok.sum(1)

@@ -70,6 +70,19 @@ def solve_cubic_real(a, b, c, d):
     return root - b_ / 3.0
 
 
+def solve_cubic_all(a, b, c, d):
+    """All real roots of a cubic: one by `solve_cubic_real`, the other two
+    from the deflated quadratic. Returns (roots (..., 3), mask (..., 3))."""
+    r1 = solve_cubic_real(a, b, c, d)
+    e = b + a * r1
+    f = c + e * r1
+    r23, m23 = solve_quadratic(a, e, f)
+    roots = torch.cat([r1[..., None], r23], dim=-1)
+    mask = torch.cat([torch.ones_like(r1, dtype=torch.bool)[..., None], m23],
+                     dim=-1)
+    return roots, mask
+
+
 def solve_quartic_real(a, b, c, d, e):
     """Real roots of a quartic via Ferrari. Returns (roots (..., 4), mask)."""
     a_safe = _nz(a)

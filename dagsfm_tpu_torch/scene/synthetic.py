@@ -2,7 +2,8 @@
 scene as dagsfm_tpu/scene/synthetic.py).
 
 Port of `SyntheticSceneSpec`, `generate`, `to_matching_problem`,
-`to_scene_arrays` and `pose_errors`.
+`to_scene_arrays`, `pose_errors` and the pinhole branch of
+`render_images`.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from dagsfm_tpu_torch.ops import rotations as rops
 from dagsfm_tpu_torch.ops.umeyama import umeyama_np
@@ -200,3 +202,68 @@ def to_matching_problem(scene: SyntheticScene, match_outlier_fraction=0.0,
                                          bad.sum())
             graph.add_matches(i + 1, j + 1, m)
     return {1: scene.camera}, images, graph
+
+
+def render_images(scene: SyntheticScene, sphere_radius: float | None = None,
+                  num_waves: int = 96, feature_px: float = 6.0,
+                  background: float = 0.15, seed: int = 0,
+                  camera=None, device=None) -> dict:
+    """Ray-traced grayscale images of a procedurally textured sphere at
+    the scene origin, seen by the scene's pinhole cameras: a band-limited
+    sum of random 3D cosine waves at the ray-sphere intersection, shaded
+    by the surface normal. Returns {image_id (1-based): (H, W) float32
+    numpy}. The texture is drawn from np.random.default_rng(seed) as the
+    reference draws it; the rays are traced with torch in float64 on
+    `device` (the GPU unless "cpu" is asked for). Rendering through
+    another camera model (`camera=`) is not ported."""
+    if camera is not None:
+        raise NotImplementedError(
+            "render_images through a camera model is not ported")
+    from dagsfm_tpu_torch import device as devmod
+    dev = devmod.resolve(device)
+    rng = np.random.default_rng(seed)
+    I = scene.R.shape[0]
+    H, W = scene.spec.image_height, scene.spec.image_width
+    fx = scene.camera.params[0]
+    cx, cy = scene.camera.params[1], scene.camera.params[2]
+    if sphere_radius is None:
+        sphere_radius = scene.spec.point_cloud_extent
+    depth_near = max(scene.spec.ring_radius - sphere_radius, 1.0)
+    lam_mid = feature_px * depth_near / fx
+    kmag = 2 * np.pi / np.exp(rng.uniform(
+        np.log(lam_mid * 0.5), np.log(lam_mid * 4.0), num_waves))
+    kdir = rng.normal(size=(num_waves, 3))
+    kdir /= np.linalg.norm(kdir, axis=1, keepdims=True)
+    kvec = kdir * kmag[:, None]
+    phase = rng.uniform(0, 2 * np.pi, num_waves)
+    amp = rng.uniform(0.5, 1.0, num_waves) / np.sqrt(num_waves)
+
+    T = (lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                   device=dev))
+    xs = (T(np.arange(W)) - cx) / fx
+    ys = (T(np.arange(H)) - cy) / fx
+    dirs_cam = torch.stack([xs[None, :].expand(H, W), ys[:, None].expand(H, W),
+                            torch.ones((H, W), dtype=torch.float64,
+                                       device=dev)], -1)
+    kvec_t, phase_t, amp_t = T(kvec), T(phase), T(amp)
+    images = {}
+    C_all = scene.centers()
+    for i in range(I):
+        d = dirs_cam @ T(scene.R[i])
+        C = T(C_all[i])
+        dd = torch.sum(d * d, -1)
+        b = 2.0 * (d @ C)
+        c0 = C @ C - sphere_radius ** 2
+        disc = b * b - 4 * dd * c0
+        hit = disc > 0
+        tt = (-b - torch.sqrt(torch.clamp(disc, min=0.0))) / (2 * dd)
+        hit &= tt > 0
+        p = C + tt[..., None] * d
+        tex = torch.cos(p @ kvec_t.T + phase_t) @ amp_t
+        tex = 0.5 + 0.5 * tex / torch.max(torch.abs(tex))
+        nrm = p / sphere_radius
+        view = -d / torch.sqrt(dd)[..., None]
+        shade = 0.6 + 0.4 * torch.clamp(torch.sum(nrm * view, -1), 0, 1)
+        img = torch.where(hit, tex * shade, torch.full_like(tex, background))
+        images[i + 1] = img.to(torch.float32).cpu().numpy()
+    return images

@@ -9,10 +9,13 @@ dagsfm_tpu/sfm/bundle_adjustment.py:
   * residuals r_n = project(cam_{i(n)}, X_{p(n)}) - obs_n with analytic
     Jacobians of the local (so(3) left increment, translation, point)
     update; Cauchy / Huber / trivial loss as IRLS weights.
-  * the reduced camera system S = U - W V^-1 Wᵀ is assembled with
-    `index_add_` over the observation pairs that share a point (one
-    GPU-natural assembly in place of the reference's three XLA modes),
-    then solved by a dense Cholesky.
+  * the reduced camera system S = U - W V^-1 Wᵀ is assembled by segment
+    sums over the observation pairs that share a point (one GPU-natural
+    assembly in place of the reference's three XLA modes), then solved
+    by a dense Cholesky. Every per-camera and per-point sum adds its
+    terms in a fixed order (`_segment_sum`): `index_add_`'s atomics on a
+    GPU add in no fixed order, and a mapping then differed from run to
+    run in its last bits.
   * the LM loop keeps the reference's accept/reject rule, lambda
     schedule (/3 on accept, x4 on reject, in [1e-10, 1e6]) and its exit
     on two consecutive accepted steps with relative gain below ftol, or
@@ -29,12 +32,21 @@ import torch
 
 from dagsfm_tpu_torch.device import DTYPE
 from dagsfm_tpu_torch.ops import rotations as rops
+from dagsfm_tpu_torch.ops import solve as lin
 from dagsfm_tpu_torch.scene import cameras as cm
+
+
+class Segments(NamedTuple):
+    """Rows of a tensor grouped by target: rows `order` (None: the rows
+    as they are) fall into consecutive runs of `lengths`, one run per
+    target in target order, each run in the rows' original order."""
+    order: torch.Tensor | None  # (M,) int64
+    lengths: torch.Tensor       # (T,) int64
 
 
 class BAProblem(NamedTuple):
     """I images, P points, N kept observations, C cameras, Q observation
-    pairs that share a point (the S blocks)."""
+    pairs that share a point (the S blocks), sorted by their S block."""
     image_qvec: torch.Tensor    # (I, 4)
     image_tvec: torch.Tensor    # (I, 3)
     image_camidx: torch.Tensor  # (I,) int64
@@ -46,7 +58,9 @@ class BAProblem(NamedTuple):
     obs_xy: torch.Tensor        # (N, 2)
     pair_a: torch.Tensor        # (Q,) obs index
     pair_b: torch.Tensor        # (Q,) obs index of the same point
-    pair_dst: torch.Tensor      # (Q,) image(a) * I + image(b)
+    by_image: Segments          # observations per image
+    by_point: Segments          # observations per point
+    by_block: Segments          # pairs per S block image(a) * I + image(b)
     const_image: torch.Tensor   # (I,) bool
     const_points: torch.Tensor  # (P,) bool
     cam_refine: torch.Tensor    # (C, 8); must be zero in this port
@@ -139,6 +153,9 @@ def make_problem(arrays, max_track_len: int = 16, const_image=None,
         op, arrays.obs_mask.cpu().numpy(), P, max_track_len))[0]
     op, oi = op[kept], oi[kept]
     pa, pb = _point_pairs(op, P)
+    block = oi[pa] * I + oi[pb]
+    by_block = np.argsort(block, kind="stable")
+    pa, pb = pa[by_block], pb[by_block]
     if const_image is None:
         const_image = np.zeros(I, bool)
     if const_points is None:
@@ -152,13 +169,17 @@ def make_problem(arrays, max_track_len: int = 16, const_image=None,
     def bt(a):
         return torch.as_tensor(np.asarray(a, bool), device=dev)
 
+    def seg(keys, num, order=True):
+        return Segments(lt(np.argsort(keys, kind="stable")) if order
+                        else None, lt(np.bincount(keys, minlength=num)))
+
     return BAProblem(
         arrays.image_qvec.to(DTYPE), arrays.image_tvec.to(DTYPE),
         arrays.image_camidx.long(), arrays.cam_model_id.long(),
         arrays.cam_params.to(DTYPE), arrays.points_xyz.to(DTYPE),
         lt(oi), lt(op), arrays.obs_xy.to(DTYPE)[lt(kept)],
-        lt(pa), lt(pb), lt(oi[pa] * I + oi[pb]),
-        bt(const_image), bt(const_points),
+        lt(pa), lt(pb), seg(oi, I), seg(op, P),
+        seg(block, I * I, order=False), bt(const_image), bt(const_points),
         torch.as_tensor(np.asarray(cam_refine), dtype=DTYPE, device=dev))
 
 
@@ -253,12 +274,19 @@ def _inv3(M: torch.Tensor) -> torch.Tensor:
     return adj / det[..., None, None]
 
 
+def _segment_sum(x: torch.Tensor, seg: Segments) -> torch.Tensor:
+    """(T, ...) sums of x's rows per target, each run added in row order:
+    the same bits on every run, on a GPU too."""
+    if seg.order is not None:
+        x = x[seg.order]
+    return torch.segment_reduce(x, "sum", lengths=seg.lengths, axis=0)
+
+
 def _build_and_solve(prob: BAProblem, r, Jc, Jp, w, lam: float,
                      opts: BAOptions):
     """One damped Gauss-Newton step via the dense Schur complement.
     Returns (dcam (I, 6), dpt (P, 3))."""
     I = prob.image_qvec.shape[0]
-    P = prob.points.shape[0]
     dt, dev = r.dtype, r.device
     oi, op = prob.obs_image, prob.obs_point
     sw = torch.sqrt(w)[:, None, None]
@@ -268,13 +296,11 @@ def _build_and_solve(prob: BAProblem, r, Jc, Jp, w, lam: float,
     r_w = r * sw[..., 0]
 
     JcT, JpT = Jc_w.transpose(1, 2), Jp_w.transpose(1, 2)
-    U = torch.zeros((I, 6, 6), dtype=dt, device=dev).index_add_(0, oi, JcT @ Jc_w)
-    V = torch.zeros((P, 3, 3), dtype=dt, device=dev).index_add_(0, op, JpT @ Jp_w)
+    U = _segment_sum(JcT @ Jc_w, prob.by_image)
+    V = _segment_sum(JpT @ Jp_w, prob.by_point)
     W = JcT @ Jp_w                                            # (N, 6, 3)
-    gc = -torch.zeros((I, 6), dtype=dt, device=dev).index_add_(
-        0, oi, (JcT @ r_w[..., None])[..., 0])
-    gp = -torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
-        0, op, (JpT @ r_w[..., None])[..., 0])
+    gc = -_segment_sum((JcT @ r_w[..., None])[..., 0], prob.by_image)
+    gp = -_segment_sum((JpT @ r_w[..., None])[..., 0], prob.by_point)
 
     eye6 = torch.eye(6, dtype=dt, device=dev)
     eye3 = torch.eye(3, dtype=dt, device=dev)
@@ -285,10 +311,9 @@ def _build_and_solve(prob: BAProblem, r, Jc, Jp, w, lam: float,
     Vinv = _inv3(Vd + 1e-12 * eye3)
 
     Y = W @ Vinv[op]                                          # (N, 6, 3)
-    b = gc - torch.zeros((I, 6), dtype=dt, device=dev).index_add_(
-        0, oi, (Y @ gp[op][..., None])[..., 0])
-    S = torch.zeros((I * I, 6, 6), dtype=dt, device=dev).index_add_(
-        0, prob.pair_dst, -(Y[prob.pair_a] @ W[prob.pair_b].transpose(1, 2)))
+    b = gc - _segment_sum((Y @ gp[op][..., None])[..., 0], prob.by_image)
+    S = _segment_sum(-(Y[prob.pair_a] @ W[prob.pair_b].transpose(1, 2)),
+                     prob.by_block)
     S = S.reshape(I, I, 6, 6)
     diag = torch.arange(I, device=dev)
     S[diag, diag] += U
@@ -298,12 +323,12 @@ def _build_and_solve(prob: BAProblem, r, Jc, Jp, w, lam: float,
     b = b * free[:, None]
     Sfull = S.permute(0, 2, 1, 3).reshape(I * 6, I * 6)
     Sfull = 0.5 * (Sfull + Sfull.T)
-    L = torch.linalg.cholesky(
+    L = lin.cholesky_or_nan(
         Sfull + 1e-10 * torch.eye(I * 6, dtype=dt, device=dev))
     dcam = torch.cholesky_solve(b.reshape(I * 6, 1), L).reshape(I, 6)
 
-    wtd = torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
-        0, op, (W.transpose(1, 2) @ dcam[oi][..., None])[..., 0])
+    wtd = _segment_sum((W.transpose(1, 2) @ dcam[oi][..., None])[..., 0],
+                       prob.by_point)
     dpt = (Vinv @ (gp - wtd)[..., None])[..., 0]
     dpt = dpt * (~prob.const_points)[:, None].to(dt)
     return dcam * free[:, None], dpt

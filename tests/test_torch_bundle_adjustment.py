@@ -130,3 +130,26 @@ def test_unported_regimes_raise():
     with pytest.raises(NotImplementedError):
         t_ba.solve(t_ba.make_problem(arrays, cam_refine=refine))
     assert t_ba.all_pinhole(arrays)
+
+
+def test_failed_factorisations_give_nan_as_the_reference():
+    """An indefinite Schur matrix or a singular system gives NaN, as
+    jax.scipy.linalg.cho_factor / jnp.linalg.solve do, and the LM loop
+    then rejects the step; torch.linalg.cholesky / solve would raise."""
+    import jax.numpy as jnp
+    import jax.scipy.linalg as jsl
+
+    from dagsfm_tpu_torch.ops import solve as lin
+    indefinite = np.array([[1.0, 2.0], [2.0, 1.0]])
+    assert not np.isfinite(np.asarray(jsl.cho_factor(
+        jnp.asarray(indefinite))[0])).all()
+    L = lin.cholesky_or_nan(torch.as_tensor(np.stack([np.eye(2),
+                                                      indefinite])))
+    assert torch.isfinite(L[0]).all() and not torch.isfinite(L[1]).any()
+    singular = np.zeros((3, 3))
+    assert not np.isfinite(np.asarray(jnp.linalg.solve(
+        jnp.asarray(singular), jnp.ones(3)))).all()
+    X = lin.solve_or_nan(torch.as_tensor(np.stack([np.eye(3), singular])),
+                         torch.ones((2, 3, 1), dtype=torch.float64))
+    assert torch.equal(X[0, :, 0], torch.ones(3, dtype=torch.float64))
+    assert not torch.isfinite(X[1]).any()

@@ -1,6 +1,8 @@
-"""The CUDA kernel on the card: the fused matcher against its plain
-version, its input checks and its launch count, and the matcher path
-through it. Every test here needs a CUDA card and skips without one.
+"""The CUDA kernels on the card: the fused matcher (K1) and the top-2
+matchers (K2, K3, K4) against their plain versions, their input checks
+and launch counts, the matcher path through K1, and that mapping and
+SIFT repeat bit for bit on the card. Every test here needs a CUDA card
+and skips without one.
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -93,3 +95,111 @@ def test_match_pairs_on_the_card_equals_the_cpu(cuda):
     for pk in cpu:
         np.testing.assert_array_equal(gpu[pk], cpu[pk])
     assert sum(len(m) for m in cpu.values()) > 100
+
+
+# --------------------------------------------------------------- K2, K3, K4
+
+def _same(out, ref):
+    for a, b in zip(out[:2], ref[:2]):
+        fin = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), fin)
+        assert torch.equal(a[~fin], b[~fin])
+        assert bool(((a[fin] - b[fin]).abs() <= 2e-6).all())
+    for a, b in zip(out[2:], ref[2:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("K", [1024, 1000, 64, 1])
+def test_top2_batch_and_mfu_variant_equal_plain_versions(cuda, K):
+    from dagsfm_tpu_torch.ops import top2_matcher as tm
+    d1, d2, m1, m2 = planted_pairs(8, K, seed=K, device=cuda)
+    before = (tm.top2_batch_launches, tm.mfu_launches)
+    out = tm.top2_batch(d1, d2, m1, m2)
+    torch.cuda.synchronize()
+    assert tm.top2_batch_launches == before[0] + 1
+    _same(out, tm.top2_batch_reference(d1, d2, m1, m2))
+    assert bool(torch.isneginf(out[0][0]).all())      # every column masked
+    for mode in range(4):
+        v = tm.mfu_variant(d1, d2, m1, m2, mode)
+        _same(v, tm.mfu_variant_reference(d1, d2, m1, m2, mode))
+        if mode == 3:
+            for a, b in zip(v, out):
+                assert torch.equal(a, b)
+    assert tm.mfu_launches == before[1] + 4
+
+
+@pytest.mark.parametrize("K1,K2", [(1024, 1024), (128, 384)])
+def test_top2_and_match_one_pair_equal_plain_versions(cuda, K1, K2):
+    from dagsfm_tpu_torch.ops import top2_matcher as tm
+    # pair 1: planted_pairs masks every column of pair 0
+    d1, d2, m1, m2 = planted_pairs(2, max(K1, K2), seed=K1 + K2, device=cuda)
+    d1, d2, m1, m2 = d1[1:], d2[1:], m1[1:], m2[1:]
+    a, b = d1[0, :K1].float().contiguous(), d2[0, :K2].float().contiguous()
+    before = tm.top2_launches
+    out = tm.top2(a, b)
+    torch.cuda.synchronize()
+    assert tm.top2_launches == before + 1
+    _same(out, tm.top2_reference(a, b))
+    m, n = tm.match_one_pair(a, b, m1[0, :K1], m2[0, :K2])
+    assert tm.top2_launches == before + 3
+    rm, rn = tm.match_one_pair_reference(a, b, m1[0, :K1], m2[0, :K2])
+    assert torch.equal(m, rm) and int(n) == int(rn) > 0
+
+
+def test_top2_kernels_refuse_what_they_do_not_take(cuda):
+    from dagsfm_tpu_torch.ops import top2_matcher as tm
+    d1, d2, m1, m2 = planted_pairs(2, 128, seed=0, device=cuda)
+    before = (tm.top2_batch_launches, tm.top2_launches, tm.mfu_launches)
+    with pytest.raises(ValueError):
+        tm.top2_batch(d1.float(), d2, m1, m2)
+    with pytest.raises(ValueError):
+        tm.top2_batch(d1, d2[:, :64], m1, m2)
+    with pytest.raises(ValueError):
+        tm.mfu_variant(d1, d2, m1.to(torch.uint8), m2, 3)
+    with pytest.raises(ValueError):
+        tm.top2(d1[0], d2[0].float())                 # bf16, not f32
+    with pytest.raises(ValueError):
+        tm.top2(d1[0].float(), d2[0, :100].float())
+    with pytest.raises(ValueError):
+        tm.top2(d1[0].float(), d2[0].float().cpu())
+    assert (tm.top2_batch_launches, tm.top2_launches, tm.mfu_launches) \
+        == before
+
+
+# ------------------------------------------------------------ repeatability
+
+def test_mapping_repeats_bit_for_bit_on_the_card(cuda):
+    """Two mappings of one matching problem give the same bits: every
+    sum in bundle adjustment adds its terms in a fixed order."""
+    from dagsfm_tpu_torch.sfm import incremental_mapper as t_im
+    sc = t_syn.generate(t_syn.SyntheticSceneSpec(
+        num_cameras=20, num_points=1500, pixel_noise=0.3, seed=9))
+    problem = t_syn.to_matching_problem(sc, match_outlier_fraction=0.1,
+                                        seed=2)
+    recs = [t_im.IncrementalMapper(*problem, t_im.MapperOptions(seed=3),
+                                   device=cuda).reconstruct()
+            for _ in range(2)]
+    a, b = recs
+    assert a.reg_image_ids == b.reg_image_ids and a.num_reg_images() == 20
+    for i in a.reg_image_ids:
+        np.testing.assert_array_equal(a.images[i].qvec, b.images[i].qvec)
+        np.testing.assert_array_equal(a.images[i].tvec, b.images[i].tvec)
+    assert a.points3D.keys() == b.points3D.keys()
+    for p in a.points3D:
+        np.testing.assert_array_equal(a.points3D[p].xyz, b.points3D[p].xyz)
+
+
+def test_sift_repeats_bit_for_bit_on_the_card(cuda):
+    """Two extractions of the same images give the same bits: the
+    orientation histogram sums each bin in a fixed order."""
+    from dagsfm_tpu_torch.features import sift as t_sift
+    sc = t_syn.generate(t_syn.SyntheticSceneSpec(
+        num_cameras=4, num_points=50, image_width=320, image_height=240,
+        focal=343.0, seed=4, ring_radius=9.0, point_cloud_extent=3.5))
+    images = t_syn.render_images(sc, device=cuda)
+    batch = torch.as_tensor(np.stack([images[i] for i in sorted(images)]),
+                            device=cuda)
+    a, b = (t_sift.extract(batch) for _ in range(2))
+    assert int(a.mask.sum()) > 100
+    for name, x in a._asdict().items():
+        assert torch.equal(x, getattr(b, name)), name

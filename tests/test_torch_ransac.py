@@ -142,5 +142,8 @@ def test_classify_pairs_essential_only_inlier_counts():
             cos = (np.trace(tres[pk].R.T @ jres[pk].R) - 1) / 2
             assert np.degrees(np.arccos(min(cos, 1.0))) < 5.0
     assert tres[(9, 10)].config == t_tvc.DEGENERATE
-    with pytest.raises(NotImplementedError):
-        t_tvc.classify_pairs(rows[:1], t_tvc.TwoViewOptions(), device="cpu")
+    # without essential_only the same pair runs the full E/F/H selection
+    full = t_tvc.classify_pairs(rows[:1], t_tvc.TwoViewOptions(
+        num_hypotheses=128), device="cpu")
+    assert full[(0, 1)].config == t_tvc.CALIBRATED
+    assert full[(0, 1)].F is not None and full[(0, 1)].H is None

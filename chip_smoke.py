@@ -12,8 +12,11 @@ any error:
      rebuilt or cached);
   3. the kernels: K1 (fused matcher), K2 (top2_batch), K3 (top2 and
      match_one_pair) and K4 (mfu_variant, every mode) against their
-     plain PyTorch versions on the card, with ragged and masked inputs;
-     each timed with CUDA events beside its bound and one PyTorch call;
+     plain PyTorch versions on the card, with ragged and masked inputs:
+     K1, K2 and K4 (bf16 tensor cores) under the borderline rule, K3
+     exactly; two launches of K1 and of K2 on the same inputs must agree
+     bit for bit; each timed with CUDA events beside its bound and one
+     PyTorch call, K1 also at the pixel path's shape (B = 128, K = 3,712);
   4. the tool path: dagsfm_tpu_torch.tools.matcher_mfu (K4's four modes
      and K1 at B = 256, K = 1024);
   5. the pixel path: 100 rendered 1024 x 768 images -> SIFT (8192
@@ -54,13 +57,13 @@ import torch
 K_SLOTS = 1024           # keypoint slots per image on the main path
 DESC_NOISE = 0.02        # per-dimension descriptor noise of an observation
 MATCH_BATCH = 128        # pairs per matcher launch on the main path
+PIXEL_SLOTS = 3712       # keypoint slots per image on the pixel path
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 FMA outside
 # the tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-TIE = 1e-6               # a "near tie": best and second within this
 
 
 def _unit(v: np.ndarray) -> np.ndarray:
@@ -156,52 +159,85 @@ def _entry(name, source, replaces, max_abs_err, ms, plain_ms, bound,
             "library_ms": library_ms, **extra}
 
 
-def kernel_phase(mk, dev, card: str) -> dict:
-    """K1 against its plain version; returns the kernels-line entry."""
+def _hold_j(name: str, j, ref, flag) -> float:
+    """K1's j against the plain version's under the borderline rule: they
+    may differ only at the rows `flag` marks (mk.borderline_rows).
+    Returns the largest |j - plain j| outside them."""
+    diff = j != ref
+    outside = int((diff & ~flag).sum())
+    err = float((j.long() - ref.long()).abs()[~flag].max()) \
+        if bool((~flag).any()) else 0.0
+    print(f"  {name}: borderline rows {int(flag.sum())}, differing rows "
+          f"{int(diff.sum())}, differing outside the borderline {outside}, "
+          f"matches {int((ref >= 0).sum())}", flush=True)
+    if outside:
+        raise AssertionError(f"{name}: j differs outside the borderline")
+    return err
+
+
+def _time_k1(mk, dev, card: str, B: int, K: int, plain: bool):
+    """K1's time at (B, K) beside its bound and torch.bmm of the same bf16
+    product (and the plain version when `plain`): (ms, plain ms, bound,
+    bmm ms)."""
     from dagsfm_tpu_torch.tools.matcher_mfu import time_ms
-    print("== kernel phase K1: fused matcher vs plain version (tolerance: "
-          "none, the j arrays must be equal)", flush=True)
-    for B, K in ((64, 1024), (64, 2048), (64, 1000)):
-        d1, d2, m1, m2 = planted_pairs(B, K, seed=K, device=dev)
-        for cross in (True, False):
-            j = mk.fused_match_j(d1, d2, m1, m2, cross_check=cross)
-            ref = mk.fused_match_j_reference(d1, d2, m1, m2,
-                                             cross_check=cross)
-            torch.cuda.synchronize()
-            diff = int((j != ref).sum())
-            nmatch = int((ref >= 0).sum())
-            print(f"  B={B} K={K} cross_check={cross}: differing rows {diff}"
-                  f" of {B * K}, matches {nmatch}", flush=True)
-            if diff:
-                raise AssertionError(f"fused matcher disagrees at K={K}")
-        del d1, d2, m1, m2, j, ref
-    # timing at the planted path's shape: one launch per 128-pair batch
-    B, K = MATCH_BATCH, K_SLOTS
     d1, d2, m1, m2 = planted_pairs(B, K, seed=7, device=dev)
-    j = mk.fused_match_j(d1, d2, m1, m2)
-    ref = mk.fused_match_j_reference(d1, d2, m1, m2)
-    max_abs_err = float((j.long() - ref.long()).abs().max())
-    if max_abs_err:
-        raise AssertionError(f"fused matcher disagrees at B={B} K={K}")
     ms = time_ms(lambda: mk.fused_match_j(d1, d2, m1, m2))
-    plain_ms = time_ms(lambda: mk.fused_match_j_reference(d1, d2, m1, m2))
+    plain_ms = (time_ms(lambda: mk.fused_match_j_reference(d1, d2, m1, m2), 3)
+                if plain else None)
     lib_ms = time_ms(lambda: torch.bmm(d1, d2.transpose(1, 2)))
     flops = 2.0 * B * K * K * 128
     bound = _bound(flops, 2 * B * K * 128 * 2 + 2 * B * K + 4 * B * K,
                    PEAK_BF16_FLOPS)
-    print(f"  B={B} K={K} on {card}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-          f" ms, torch.bmm bf16 yardstick {lib_ms:.4f} ms, bound "
-          f"{bound[0]:.4f} ms ({bound[1]}), {flops / ms / 1e9:.1f} TFLOP/s",
+    plain_txt = f"plain {plain_ms:.4f} ms, " if plain else ""
+    print(f"  K1 B={B} K={K} on {card}: kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), {plain_txt}torch.bmm bf16 "
+          f"yardstick {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), "
+          f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    return ms, plain_ms, bound, lib_ms
+
+
+def kernel_phase(mk, dev, card: str) -> dict:
+    """K1 against its plain version; returns the kernels-line entry."""
+    print("== kernel phase K1: fused matcher vs plain version (borderline "
+          f"rule, eps = {mk.EPS:.3g}: j may differ only at borderline rows)",
           flush=True)
+    err = 0.0
+    for B, K in ((64, 1024), (64, 2048), (64, 1000)):
+        d1, d2, m1, m2 = planted_pairs(B, K, seed=K, device=dev)
+        for cross in (True, False):
+            j = mk.fused_match_j(d1, d2, m1, m2, cross_check=cross)
+            j2 = mk.fused_match_j(d1, d2, m1, m2, cross_check=cross)
+            ref = mk.fused_match_j_reference(d1, d2, m1, m2,
+                                             cross_check=cross)
+            flag = mk.borderline_rows(d1, d2, m1, m2, cross_check=cross)
+            torch.cuda.synchronize()
+            err = max(err, _hold_j(f"B={B} K={K} cross_check={cross}", j,
+                                   ref, flag))
+            if not torch.equal(j, j2):
+                raise AssertionError("two K1 launches on the same inputs "
+                                     "differ")
+        del d1, d2, m1, m2, j, j2, ref, flag
+    # timing at the planted path's shape (one launch per 128-pair batch),
+    # then at the pixel path's (K = 3,712 slots)
+    ms, plain_ms, bound, lib_ms = _time_k1(mk, dev, card, MATCH_BATCH,
+                                           K_SLOTS, plain=True)
+    ms2, _, bound2, lib2 = _time_k1(mk, dev, card, MATCH_BATCH, PIXEL_SLOTS,
+                                    plain=False)
     return _entry("fused_matcher", "dagsfm_tpu_torch/csrc/fused_matcher.cu",
-                  "dagsfm_tpu/ops/pallas_matcher.py:246", max_abs_err, ms,
-                  plain_ms, bound, lib_ms)
+                  "dagsfm_tpu/ops/pallas_matcher.py:246", err, ms,
+                  plain_ms, bound, lib_ms,
+                  pixel_shape={"B": MATCH_BATCH, "K": PIXEL_SLOTS, "ms": ms2,
+                               "bound_ms": bound2[0], "bound_by": bound2[1],
+                               "library_ms": lib2})
 
 
-def _hold(name: str, out, ref, scores) -> float:
+def _hold(name: str, out, ref, border=None) -> float:
     """Kernel outputs (best, second, idx[, rev]) against the plain
-    version's: indices equal, best / second within 2e-6. Prints the
-    differing and near-tied counts; returns the largest score error."""
+    version's. With `border` = (rows, cols) from the borderline rule
+    (bf16 kernels): best and second within EPS, idx and rev equal outside
+    the flagged rows and columns. Without it (K3): equal to the bit.
+    Prints the counts; returns the largest score error."""
+    from dagsfm_tpu_torch.ops.top2_matcher import EPS
     err = 0.0
     for what, a, b in zip(("best", "second"), out[:2], ref[:2]):
         fin = torch.isfinite(b)
@@ -210,20 +246,24 @@ def _hold(name: str, out, ref, scores) -> float:
             raise AssertionError(f"{name}: {what} infinities differ")
         if bool(fin.any()):
             err = max(err, float((a[fin] - b[fin]).abs().max()))
-    top = torch.topk(scores, 2, dim=-1).values
-    ties_row = int(((top[..., 0] - top[..., 1]) < TIE).sum())
-    diff_idx = int((out[2] != ref[2]).sum())
-    msg = (f"differing idx {diff_idx}, near-tied rows {ties_row}")
-    if len(out) > 3:
-        topc = torch.topk(scores, 2, dim=-2).values
-        ties_col = int(((topc[..., 0, :] - topc[..., 1, :]) < TIE).sum())
-        diff_rev = int((out[3] != ref[3]).sum())
-        msg += f", differing rev {diff_rev}, near-tied columns {ties_col}"
-    else:
-        diff_rev = 0
-    print(f"  {name}: {msg}, max |best or second - plain| {err:.3g}",
-          flush=True)
-    if diff_idx or diff_rev or err > 2e-6:
+    rows, cols = border if border is not None else (None, None)
+    outside = 0
+    msg = []
+    for what, a, b, flag in zip(("idx", "rev"), out[2:], ref[2:],
+                                (rows, cols)):
+        diff = a != b
+        msg.append(f"differing {what} {int(diff.sum())}")
+        if flag is not None:
+            n_out = int((diff & ~flag).sum())
+            msg.append(f"borderline {'rows' if what == 'idx' else 'columns'}"
+                       f" {int(flag.sum())}, differing {what} outside them "
+                       f"{n_out}")
+            outside += n_out
+        else:
+            outside += int(diff.sum())
+    print(f"  {name}: {', '.join(msg)}, max |best or second - plain| "
+          f"{err:.3g}", flush=True)
+    if outside or err > (EPS if border is not None else 0.0):
         raise AssertionError(f"{name} disagrees with its plain version")
     return err
 
@@ -234,31 +274,37 @@ def top2_phase(tm, dev, card: str) -> list:
     its timing shape. Returns the kernels-line entries of K2, K3, K4."""
     from dagsfm_tpu_torch.tools.matcher_mfu import time_ms
     print("== kernel phase K2 / K4: top2_batch and mfu_variant vs plain "
-          "versions (indices equal, best / second within 2e-6)", flush=True)
+          f"versions (borderline rule, eps = {tm.EPS:.3g}: best / second "
+          "within eps, idx / rev equal outside borderline rows / columns; "
+          "mode 3 equal to K2)", flush=True)
     err2 = err4 = err3 = 0.0
     for K in (1024, 2048, 1000):
         d1, d2, m1, m2 = planted_pairs(64, K, seed=K + 1, device=dev)
         out = tm.top2_batch(d1, d2, m1, m2)
+        again = tm.top2_batch(d1, d2, m1, m2)
         ref = tm.top2_batch_reference(d1, d2, m1, m2)
         torch.cuda.synchronize()
         scores = tm.ordered_scores(d1.to(torch.bfloat16),
                                    d2.to(torch.bfloat16))
         masked = torch.where(m1[:, :, None] & m2[:, None, :], scores,
                              -torch.inf)
+        border = {True: tm.borderline_of_scores(masked),
+                  False: tm.borderline_of_scores(scores)}
         print(f" B=64 K={K}:", flush=True)
-        err2 = max(err2, _hold("top2_batch", out, ref, masked))
+        err2 = max(err2, _hold("top2_batch", out, ref, border[True]))
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError("two K2 launches on the same inputs differ")
         for mode in range(4):
             v = tm.mfu_variant(d1, d2, m1, m2, mode)
             vref = tm.mfu_variant_reference(d1, d2, m1, m2, mode)
             err4 = max(err4, _hold(f"mfu_variant mode {mode}", v, vref,
-                                   masked if mode == 3 else scores))
+                                   border[mode == 3]))
             if mode == 3 and not all(torch.equal(a, b)
                                      for a, b in zip(v, out)):
                 raise AssertionError("mfu_variant mode 3 != top2_batch")
-        del d1, d2, m1, m2, out, ref, scores, masked
+        del d1, d2, m1, m2, out, again, ref, scores, masked, border
     print("== kernel phase K3: top2 and match_one_pair vs plain versions "
-          "(f32, TF32 off; indices equal, scores within 2e-6; matches "
-          "equal)", flush=True)
+          "(f32, TF32 off; equal to the bit; matches equal)", flush=True)
     for K1, K2 in ((1024, 1024), (1024, 2048)):
         # pair 1: planted_pairs masks every column of pair 0
         d1, d2, m1, m2 = planted_pairs(2, K2, seed=K1 + K2, device=dev)
@@ -267,7 +313,7 @@ def top2_phase(tm, dev, card: str) -> list:
         out = tm.top2(a, b)
         ref = tm.top2_reference(a, b)
         print(f" K1={K1} K2={K2}:", flush=True)
-        err3 = max(err3, _hold("top2", out, ref, tm.ordered_scores(a, b)))
+        err3 = max(err3, _hold("top2", out, ref))
         mm, n = tm.match_one_pair(a, b, m1[1, :K1], m2[1])
         rm, rn = tm.match_one_pair_reference(a, b, m1[1, :K1], m2[1])
         diff = int((mm != rm).any(-1).sum())
@@ -285,10 +331,11 @@ def top2_phase(tm, dev, card: str) -> list:
     ms2 = time_ms(lambda: tm.top2_batch(d1, d2, m1, m2))
     plain2 = time_ms(lambda: tm.top2_batch_reference(d1, d2, m1, m2), 3)
     bound2 = _bound(flops, desc_b + mask_b + out_b, PEAK_BF16_FLOPS)
-    print(f"  top2_batch B={B} K={K} on {card}: kernel {ms2:.4f} ms, plain "
-          f"{plain2:.4f} ms, torch.bmm bf16 yardstick {lib_ms:.4f} ms, "
-          f"bound {bound2[0]:.4f} ms ({bound2[1]}), "
-          f"{flops / ms2 / 1e9:.1f} TFLOP/s", flush=True)
+    print(f"  top2_batch B={B} K={K} on {card}: kernel {ms2:.4f} ms "
+          f"({flops / ms2 / 1e9:.1f} TFLOP/s), plain {plain2:.4f} ms, "
+          f"torch.bmm bf16 yardstick {lib_ms:.4f} ms "
+          f"({flops / lib_ms / 1e9:.1f} TFLOP/s), bound {bound2[0]:.4f} ms "
+          f"({bound2[1]})", flush=True)
     entries.append(_entry(
         "top2_batch", "dagsfm_tpu_torch/csrc/top2_matcher.cu",
         "dagsfm_tpu/ops/pallas_matcher.py:157", err2, ms2, plain2, bound2,
@@ -302,8 +349,8 @@ def top2_phase(tm, dev, card: str) -> list:
                     PEAK_BF16_FLOPS)
         by_mode[mode] = (ms, pl, bd)
         print(f"  mfu_variant mode {mode} B={B} K={K} on {card}: kernel "
-              f"{ms:.4f} ms, plain {pl:.4f} ms, bound {bd[0]:.4f} ms "
-              f"({bd[1]})", flush=True)
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {pl:.4f} "
+              f"ms, bound {bd[0]:.4f} ms ({bd[1]})", flush=True)
     ms4, plain4, bound4 = by_mode[3]
     entries.append(_entry(
         "mfu_variant", "dagsfm_tpu_torch/csrc/top2_matcher.cu",
@@ -640,12 +687,14 @@ def entry_path(fp, dev, card: str) -> dict:
     print(f"  {time.perf_counter() - t0:.3f} s on {card}; match_one_pair "
           f"{int(n)} matches; launches {counts}", flush=True)
 
-    print("  held against the plain versions on the same inputs (indices "
-          "equal, best / second within 2e-6, matches equal):", flush=True)
-    sim = tm.ordered_scores(d1, d2)
-    _hold("top2_batch", out, tm.top2_batch_reference(d1, d2, m1, m2),
-          torch.where(m1[:, :, None] & m2[:, None, :], sim, -torch.inf))
-    del out, sim
+    print("  held against the plain versions on the same inputs (K2 and K1: "
+          "borderline rule; match_one_pair: matches equal):", flush=True)
+    sim = torch.where(m1[:, :, None] & m2[:, None, :],
+                      tm.ordered_scores(d1, d2), -torch.inf)
+    border = tm.borderline_of_scores(sim)
+    del sim
+    _hold("top2_batch", out, tm.top2_batch_reference(d1, d2, m1, m2), border)
+    del out, border
     rm, rn = tm.match_one_pair_reference(fa, fb, ma, mb)
     diff = int((matches != rm).any(-1).sum())
     print(f"  match_one_pair: differing rows {diff}", flush=True)
@@ -655,12 +704,9 @@ def entry_path(fp, dev, card: str) -> dict:
     d1, d2, m1, m2 = batch(first)
     j = mk.fused_match_j(d1, d2, m1, m2)
     ref = mk.fused_match_j_reference(d1, d2, m1, m2)
-    diff = int((j != ref).sum())
-    print(f"  fused matcher, the pixel path's first batch (B={len(first)}, "
-          f"K={d1.shape[1]}): differing rows {diff}, matches "
-          f"{int((ref >= 0).sum())}", flush=True)
-    if diff:
-        raise AssertionError("fused matcher disagrees on the pixel path")
+    flag = mk.borderline_rows(d1, d2, m1, m2)
+    _hold_j(f"fused matcher, the pixel path's first batch (B={len(first)}, "
+            f"K={d1.shape[1]})", j, ref, flag)
     return counts
 
 

@@ -5,72 +5,50 @@
 // Replaces three Pallas kernels:
 //   K2 `_batch_matcher_kernel` (dagsfm_tpu/ops/pallas_matcher.py, entry
 //      `pallas_top2_batch`): bf16 pairs with masks, forward top-2 and the
-//      reverse argmax. Here: top2_tiles<3, __nv_bfloat16>.
+//      reverse argmax. Here: the tile engine of matcher_tiles.cuh in mode 3.
 //   K4 `_mk_kernel(mode)` (tools/matcher_mfu.py, entry `run_variant`): K2
-//      with its stages switched on one at a time. Here: top2_tiles<MODE,
-//      __nv_bfloat16>, MODE 0..3, so K2 is exactly mode 3:
+//      with its stages switched on one at a time, MODE 0..3 of the same
+//      engine, so K2 is exactly mode 3:
 //        0 product + row max (second = -inf, idx = 0, rev = 0)
 //        1 + forward top-2 (rev = 0)
 //        2 + reverse argmax
 //        3 + masks (modes 0-2 ignore them)
 //   K3 `_matcher_kernel` (pallas_matcher.py, entry `pallas_top2`): one f32
-//      pair, no masks, forward top-2 only. Here: top2_tiles<1, float>.
+//      pair, no masks, forward top-2 only. Here: top2_f32_tiles.
 //
 // For pair b, row r of d1 (R x 128) and column c of d2 (C x 128):
-//   S[r, c] = sum_k d1[r, k] * d2[c, k] in f32, summed in order k = 0..127
-//   (-inf where m1[r] or m2[c] is unset, mode 3 only);
+//   S[r, c] = sum_k d1[r, k] * d2[c, k] in f32 (-inf where m1[r] or m2[c]
+//   is unset, mode 3 only);
 //   best = max_c S, idx = first c attaining it, second = max over c != idx
 //   (an exact tie counts as second, as the reference's >= merge gives);
 //   rev[c] = first r attaining max_r S[r, c] (an all -inf column gives 0).
-// The sum runs in a fixed order with one rounding per step, so the plain
-// PyTorch versions (ops/top2_matcher.py), which add the products in the
-// same order, give the same bits: a bf16 x bf16 product is exact in f32,
-// so fmaf equals a multiply then an add; for f32 inputs the kernel rounds
-// the product and the sum separately (__fmul_rn / __fadd_rn).
 //
-// Bound on an H100: 2*R*C*128 operations per pair (268 MFLOP at 1024 x
-// 1024) against ~0.5 MB of bf16 input, so compute-bound. Like K1 this
-// first version multiplies with plain f32 FMAs (67 TFLOP/s peak), not the
-// 989 TFLOP/s bf16 tensor cores, and K3 with separate f32 multiplies and
-// adds; tensor cores are later work.
+// K2 / K4 (bf16): the bf16 tensor cores add the products in their own
+// order, so scores may differ from the plain version's by a few f32 ulps
+// and the checks hold them to the borderline rule
+// (ops/top2_matcher.borderline). Bound and design: matcher_tiles.cuh.
 //
-// Design: the tile loop of K1 (csrc/fused_matcher.cu). One CTA per (pair,
-// 64-row tile) walks all 64-column tiles; each tile's scores go to shared
-// memory; 64 threads keep their rows' running (best, second, argbest) in
-// registers (a scan in column order with a strict > keeps the first index
-// on ties) and, from mode 2, 64 threads reduce each column over the tile's
-// rows and publish it with one 64-bit atomicMax of (order-preserving float
-// bits << 32 | ~row): the largest score wins and, on ties, the smallest
-// row. A second small kernel turns the column keys into rows. Ragged R
-// and C pad the last tiles in the kernel: rows and columns beyond them
-// never enter a reduction.
+// K3 (f32): the sum runs in order k = 0..127 with the product and the sum
+// rounded separately (__fmul_rn / __fadd_rn), so the plain version
+// (ops/top2_matcher.ordered_scores), which adds in the same order, gives
+// the same bits. Bound on an H100: 2*R*C*128 operations against the f32
+// FMA peak (67 TFLOP/s; TF32 tensor cores would change its results).
+// Design: one CTA per 64-row tile walks all 64-column tiles; each tile's
+// scores go to shared memory; 64 threads keep their rows' running (best,
+// second, argbest) in registers (a scan in column order with a strict >
+// keeps the first index on ties). Ragged R and C pad the last tiles in
+// the kernel: rows and columns beyond them never enter a reduction.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "matcher_tiles.cuh"
 
-#define BM 64
-#define BN 64
-#define BK 32
-#define DIM 128
-#define THREADS 256
+// K3's tile sizes (the engine's are matcher_tiles::BM, ...)
+#define K3_BM 64
+#define K3_BN 64
+#define K3_BK 32
+#define K3_DIM 128
+#define K3_THREADS 256
 
-__device__ __forceinline__ unsigned int ordered_bits(float f) {
-    if (f == 0.0f) f = 0.0f;  // -0 and +0 compare equal: one key for both
-    unsigned int u = __float_as_uint(f);
-    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// 8 consecutive elements (16-byte aligned) as float
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, bool ok,
-                                      float* out) {
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (ok) v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) out[e] = __bfloat162float(h[e]);
-}
-
+// 8 consecutive f32 elements (16-byte aligned)
 __device__ __forceinline__ void load8(const float* p, bool ok, float* out) {
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
     if (ok) {
@@ -81,82 +59,61 @@ __device__ __forceinline__ void load8(const float* p, bool ok, float* out) {
     out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
-// one step of the ordered sum: exact bf16 products allow the FMA; f32
-// products round before the add, as the plain version's multiply and add
-__device__ __forceinline__ float madd(float acc, float a, float b,
-                                      const __nv_bfloat16*) {
-    return fmaf(a, b, acc);
-}
-__device__ __forceinline__ float madd(float acc, float a, float b,
-                                      const float*) {
-    return __fadd_rn(acc, __fmul_rn(a, b));
-}
-
-template <int MODE, typename T>
-__global__ void __launch_bounds__(THREADS)
-top2_tiles(const T* __restrict__ d1, const T* __restrict__ d2,
-           const uint8_t* __restrict__ m1, const uint8_t* __restrict__ m2,
-           int R, int C, float* __restrict__ best_out,
-           float* __restrict__ second_out, int* __restrict__ idx_out,
-           unsigned long long* __restrict__ col_key) {
-    __shared__ float As[BK][BM];
-    __shared__ float Bs[BK][BN];
-    __shared__ float Ss[BM][BN + 1];
-    __shared__ uint8_t rowok[BM];
-    __shared__ uint8_t colok[BN];
+__global__ void __launch_bounds__(K3_THREADS)
+top2_f32_tiles(const float* __restrict__ d1, const float* __restrict__ d2,
+               int R, int C, float* __restrict__ best_out,
+               float* __restrict__ second_out, int* __restrict__ idx_out) {
+    __shared__ float As[K3_BK][K3_BM];
+    __shared__ float Bs[K3_BK][K3_BN];
+    __shared__ float Ss[K3_BM][K3_BN + 1];
+    __shared__ uint8_t rowok[K3_BM];
+    __shared__ uint8_t colok[K3_BN];
 
     const int tid = threadIdx.x;
     const int tx = tid % 16, ty = tid / 16;
-    const int b = blockIdx.y;
-    const int row0 = blockIdx.x * BM;
-    const long long rbase = (long long)b * R;
-    const long long cbase = (long long)b * C;
+    const int row0 = blockIdx.x * K3_BM;
     const float NEG = -__int_as_float(0x7f800000);   // -inf
 
-    if (tid < BM) {
-        int r = row0 + tid;
-        rowok[tid] = (r < R) ? (MODE >= 3 ? m1[rbase + r] : 1) : 0;
-    }
+    if (tid < K3_BM) rowok[tid] = row0 + tid < R;
     float run_best = NEG, run_second = NEG;
     int run_idx = 0;
 
     // loader mapping: 256 threads x 8 elements = one 64 x 32 chunk
     const int ld_row = tid / 4, ld_k = (tid % 4) * 8;
 
-    for (int col0 = 0; col0 < C; col0 += BN) {
-        if (tid < BN) {
-            int c = col0 + tid;
-            colok[tid] = (c < C) ? (MODE >= 3 ? m2[cbase + c] : 1) : 0;
-        }
+    for (int col0 = 0; col0 < C; col0 += K3_BN) {
+        if (tid < K3_BN) colok[tid] = col0 + tid < C;
         float acc[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
             for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-        for (int k0 = 0; k0 < DIM; k0 += BK) {
+        for (int k0 = 0; k0 < K3_DIM; k0 += K3_BK) {
             float v[8];
             int r = row0 + ld_row;
-            load8(d1 + (rbase + r) * DIM + k0 + ld_k, r < R, v);
+            load8(d1 + (long long)r * K3_DIM + k0 + ld_k, r < R, v);
 #pragma unroll
             for (int e = 0; e < 8; ++e) As[ld_k + e][ld_row] = v[e];
             int c = col0 + ld_row;
-            load8(d2 + (cbase + c) * DIM + k0 + ld_k, c < C, v);
+            load8(d2 + (long long)c * K3_DIM + k0 + ld_k, c < C, v);
 #pragma unroll
             for (int e = 0; e < 8; ++e) Bs[ld_k + e][ld_row] = v[e];
             __syncthreads();
 #pragma unroll 8
-            for (int kk = 0; kk < BK; ++kk) {
+            for (int kk = 0; kk < K3_BK; ++kk) {
                 float a[4], bb[4];
 #pragma unroll
                 for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
 #pragma unroll
                 for (int j = 0; j < 4; ++j) bb[j] = Bs[kk][tx + 16 * j];
+                // the product rounds before the add, as the plain
+                // version's multiply and add
 #pragma unroll
                 for (int i = 0; i < 4; ++i)
 #pragma unroll
                     for (int j = 0; j < 4; ++j)
-                        acc[i][j] = madd(acc[i][j], a[i], bb[j], d1);
+                        acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(a[i], bb[j]));
             }
             __syncthreads();
         }
@@ -169,44 +126,26 @@ top2_tiles(const T* __restrict__ d1, const T* __restrict__ d2,
             }
         __syncthreads();
 
-        const int ncols = min(BN, C - col0);
-        const int nrows = min(BM, R - row0);
-        if (tid < BM) {
-            if (tid < nrows) {
-                for (int n = 0; n < ncols; ++n) {
-                    float s = Ss[tid][n];
-                    if (MODE == 0) {
-                        if (s > run_best) run_best = s;
-                    } else if (s > run_best) {
-                        run_second = run_best;
-                        run_best = s;
-                        run_idx = col0 + n;
-                    } else if (s > run_second) {
-                        run_second = s;
-                    }
+        const int ncols = min(K3_BN, C - col0);
+        const int nrows = min(K3_BM, R - row0);
+        if (tid < nrows) {
+            for (int n = 0; n < ncols; ++n) {
+                float s = Ss[tid][n];
+                if (s > run_best) {
+                    run_second = run_best;
+                    run_best = s;
+                    run_idx = col0 + n;
+                } else if (s > run_second) {
+                    run_second = s;
                 }
-            }
-        } else if (MODE >= 2 && tid < BM + BN) {
-            int n = tid - BM;
-            if (n < ncols) {
-                float cb = NEG;
-                int cr = 0;
-                for (int m = 0; m < nrows; ++m) {
-                    float s = Ss[m][n];
-                    if (s > cb) { cb = s; cr = m; }
-                }
-                unsigned long long key =
-                    ((unsigned long long)ordered_bits(cb) << 32) |
-                    (unsigned long long)(0xFFFFFFFFu - (unsigned int)(row0 + cr));
-                atomicMax(col_key + cbase + col0 + n, key);
             }
         }
         __syncthreads();
     }
-    if (tid < BM && row0 + tid < R) {
-        best_out[rbase + row0 + tid] = run_best;
-        second_out[rbase + row0 + tid] = run_second;
-        idx_out[rbase + row0 + tid] = run_idx;
+    if (tid < K3_BM && row0 + tid < R) {
+        best_out[row0 + tid] = run_best;
+        second_out[row0 + tid] = run_second;
+        idx_out[row0 + tid] = run_idx;
     }
 }
 
@@ -218,24 +157,19 @@ __global__ void rows_from_keys(const unsigned long long* __restrict__ col_key,
     rev[g] = (int)(0xFFFFFFFFu - low);
 }
 
-template <int MODE, typename T>
-static int launch(const T* d1, const T* d2, const uint8_t* m1,
-                  const uint8_t* m2, int B, int R, int C, float* best,
-                  float* second, int* idx, int* rev,
-                  unsigned long long* col_key, cudaStream_t s) {
-    long long ncol = (long long)B * C;
-    if (MODE >= 2) {
-        cudaError_t e = cudaMemsetAsync(col_key, 0, ncol * 8, s);
-        if (e != cudaSuccess) return (int)e;
-    } else if (rev) {
-        cudaError_t e = cudaMemsetAsync(rev, 0, ncol * 4, s);
-        if (e != cudaSuccess) return (int)e;
-    }
-    dim3 grid((R + BM - 1) / BM, B);
-    top2_tiles<MODE, T><<<grid, THREADS, 0, s>>>(d1, d2, m1, m2, R, C, best,
-                                                 second, idx, col_key);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess || MODE < 2) return (int)e;
+template <int MODE>
+static int launch_batch(const __nv_bfloat16* d1, const __nv_bfloat16* d2,
+                        const uint8_t* m1, const uint8_t* m2, int B, int K,
+                        float* best, float* second, int* idx, int* rev,
+                        unsigned long long* col_key, cudaStream_t s) {
+    long long ncol = (long long)B * K;
+    cudaError_t e = MODE >= 2 ? cudaMemsetAsync(col_key, 0, ncol * 8, s)
+                              : cudaMemsetAsync(rev, 0, ncol * 4, s);
+    if (e != cudaSuccess) return (int)e;
+    int err = matcher_tiles::launch_match_tiles<(MODE >= 1), (MODE >= 2),
+                                                (MODE >= 3)>(
+        d1, d2, m1, m2, B, K, K, best, second, idx, col_key, s);
+    if (err != 0 || MODE < 2) return err;
     int threads = 256;
     int blocks = (int)((ncol + threads - 1) / threads);
     rows_from_keys<<<blocks, threads, 0, s>>>(col_key, ncol, rev);
@@ -262,10 +196,10 @@ extern "C" int top2_batch_launch(const void* d1, const void* d2,
     unsigned long long* ck = (unsigned long long*)col_key;
     cudaStream_t s = (cudaStream_t)stream;
     switch (mode) {
-        case 0: return launch<0>(a, b, ma, mb, B, K, K, bo, so, io, ro, ck, s);
-        case 1: return launch<1>(a, b, ma, mb, B, K, K, bo, so, io, ro, ck, s);
-        case 2: return launch<2>(a, b, ma, mb, B, K, K, bo, so, io, ro, ck, s);
-        case 3: return launch<3>(a, b, ma, mb, B, K, K, bo, so, io, ro, ck, s);
+        case 0: return launch_batch<0>(a, b, ma, mb, B, K, bo, so, io, ro, ck, s);
+        case 1: return launch_batch<1>(a, b, ma, mb, B, K, bo, so, io, ro, ck, s);
+        case 2: return launch_batch<2>(a, b, ma, mb, B, K, bo, so, io, ro, ck, s);
+        case 3: return launch_batch<3>(a, b, ma, mb, B, K, bo, so, io, ro, ck, s);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -276,8 +210,9 @@ extern "C" int top2_f32_launch(const void* d1, const void* d2, int K1,
                                int K2, void* best, void* second, void* idx,
                                void* stream) {
     if (K1 <= 0 || K2 <= 0) return 0;
-    return launch<1>((const float*)d1, (const float*)d2, nullptr, nullptr, 1,
-                     K1, K2, (float*)best, (float*)second, (int*)idx,
-                     (int*)nullptr, (unsigned long long*)nullptr,
-                     (cudaStream_t)stream);
+    top2_f32_tiles<<<(K1 + K3_BM - 1) / K3_BM, K3_THREADS, 0,
+                     (cudaStream_t)stream>>>(
+        (const float*)d1, (const float*)d2, K1, K2, (float*)best,
+        (float*)second, (int*)idx);
+    return (int)cudaGetLastError();
 }

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
 Each source is compiled with nvcc for sm_90a into a shared library with a
-plain C interface, named by the hash of its source and kept in `build/` at
-the root of the checkout, and loaded with ctypes. `load` builds every
-missing library it is asked for at once, one nvcc process per source, all
-started together, and waits for them.
+plain C interface, named by the hash of its source and of every header in
+`csrc/` (so editing a shared header rebuilds every library), kept in
+`build/` at the root of the checkout and loaded with ctypes. `load` builds
+every missing library it is asked for at once, one nvcc process per source,
+all started together, and waits for them.
 """
 
 from __future__ import annotations
@@ -33,13 +34,16 @@ def _nvcc() -> str:
 
 
 def _so_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
 def load(*names: str) -> dict:
     """name -> ctypes.CDLL for each csrc/<name>.cu, building those whose
-    source hash has no library yet, in parallel."""
+    source and header hash has no library yet, in parallel."""
     todo = [n for n in names if n not in _libs]
     t0 = time.perf_counter()
     procs = {}

@@ -3,13 +3,20 @@
 Replaces `_fused_matcher_kernel` (dagsfm_tpu/ops/pallas_matcher.py, entry
 `pallas_match_j_batch`). The kernel is `csrc/fused_matcher.cu`, compiled
 with nvcc for sm_90a into a shared library with a plain C interface and
-loaded with ctypes; see the .cu file for the design and its bound.
+loaded with ctypes; see the .cu file and `csrc/matcher_tiles.cuh` for the
+design and its bound.
 
 `fused_match_j` launches the kernel for CUDA tensors and runs the plain
 PyTorch version (`fused_match_j_reference`) only for CPU tensors; for a
 CUDA tensor it launches or raises, never falls back.
 `match_pair_batch_fused` is the counterpart of `pallas_match_pair_batch`:
 the same kernel, with (B, K, 2) matches out.
+
+The kernel multiplies on the bf16 tensor cores, which add the 128
+products in their own order, so its scores may differ from the plain
+version's by a few f32 ulps and its j from the plain j at borderline rows
+only (`borderline_rows`, with top2_matcher.EPS): rows whose decision can
+change when every score moves by at most EPS.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import ctypes
 import torch
 
 from dagsfm_tpu_torch.ops import cuda_build
+from dagsfm_tpu_torch.ops.top2_matcher import EPS, score_gap
 
 launches = 0          # kernel launches (one per fused_match_j on a GPU)
 
@@ -32,28 +40,79 @@ def load_library():
     return lib
 
 
-def fused_match_j_reference(d1, d2, m1, m2, max_ratio: float = 0.8,
-                            max_distance: float = 0.7,
-                            cross_check: bool = True) -> torch.Tensor:
-    """Plain PyTorch version: bf16-rounded inputs, f32 product, max /
-    masked max / first-index argmax. d1, d2 (B, K, D); m1, m2 (B, K) bool.
-    Returns j (B, K) int32, -1 = no match."""
+def masked_scores(d1, d2, m1, m2) -> torch.Tensor:
+    """The plain version's (B, K, K) scores: bf16-rounded inputs, f32
+    product, -inf where m1 or m2 is unset."""
     a = d1.to(torch.bfloat16).float()
     b = d2.to(torch.bfloat16).float()
     sim = a @ b.transpose(-1, -2)                             # (B, K, K)
-    neg = torch.tensor(-torch.inf, dtype=sim.dtype, device=sim.device)
-    sim = torch.where(m1[:, :, None] & m2[:, None, :], sim, neg)
+    return torch.where(m1[:, :, None] & m2[:, None, :], sim, -torch.inf)
+
+
+def _top2(sim):
     best, bidx = torch.max(sim, dim=-1)
     cols = torch.arange(sim.shape[-1], device=sim.device)
-    second = torch.where(cols == bidx[..., None], neg, sim).amax(-1)
+    second = torch.where(cols == bidx[..., None], -torch.inf, sim).amax(-1)
+    return best, second, bidx
+
+
+def _passes(best, second, max_ratio, max_distance):
+    """Ratio and distance tests on (best, second) scores."""
     d_best = torch.sqrt(torch.clamp(2.0 - 2.0 * best, min=0.0))
     d_second = torch.sqrt(torch.clamp(2.0 - 2.0 * second, min=1e-12))
-    ok = (d_best < max_ratio * d_second) & (d_best < max_distance) & m1
+    return (d_best < max_ratio * d_second) & (d_best < max_distance)
+
+
+def match_j_of_scores(sim, m1, max_ratio: float = 0.8,
+                      max_distance: float = 0.7,
+                      cross_check: bool = True) -> torch.Tensor:
+    """j (B, K) int32 of (B, K, K) masked scores: max / masked max /
+    first-index argmax, ratio and distance tests, mutual check."""
+    best, second, bidx = _top2(sim)
+    ok = _passes(best, second, max_ratio, max_distance) & m1
     if cross_check:
         rev = torch.argmax(sim, dim=1)                        # (B, K)
         rows = torch.arange(sim.shape[1], device=sim.device)
         ok = ok & (torch.gather(rev, 1, bidx) == rows)
     return torch.where(ok, bidx, -1).to(torch.int32)
+
+
+def fused_match_j_reference(d1, d2, m1, m2, max_ratio: float = 0.8,
+                            max_distance: float = 0.7,
+                            cross_check: bool = True) -> torch.Tensor:
+    """Plain PyTorch version. d1, d2 (B, K, D); m1, m2 (B, K) bool.
+    Returns j (B, K) int32, -1 = no match."""
+    return match_j_of_scores(masked_scores(d1, d2, m1, m2), m1, max_ratio,
+                             max_distance, cross_check)
+
+
+def borderline_of_scores(sim, max_ratio: float = 0.8,
+                         max_distance: float = 0.7, cross_check: bool = True,
+                         eps: float = EPS) -> torch.Tensor:
+    """(B, K) bool: the rows whose j may change when every one of the
+    (B, K, K) masked scores moves by at most eps. A row is borderline if
+    its top-2 gap is under 2 eps, if its ratio or distance test gives
+    another answer with best and second each moved by eps (the tests are
+    monotone, so the two extremes decide), or, with the cross-check, if
+    the column its argbest points at has a top-2 gap under 2 eps."""
+    best, second, bidx = _top2(sim)
+    flag = (best - second) < 2 * eps        # the row's top-2 gap (nan: all -inf)
+    flag |= (_passes(best + eps, second - eps, max_ratio, max_distance)
+             != _passes(best - eps, second + eps, max_ratio, max_distance))
+    if cross_check:
+        col = score_gap(sim, -2) < 2 * eps                    # (B, K)
+        flag |= torch.gather(col, 1, bidx)
+    return flag
+
+
+def borderline_rows(d1, d2, m1, m2, max_ratio: float = 0.8,
+                    max_distance: float = 0.7, cross_check: bool = True,
+                    eps: float = EPS) -> torch.Tensor:
+    """Borderline rows of these inputs (`borderline_of_scores` on the
+    plain version's scores): where the kernel's j may differ from the
+    plain version's under the borderline rule."""
+    return borderline_of_scores(masked_scores(d1, d2, m1, m2), max_ratio,
+                                max_distance, cross_check, eps)
 
 
 def fused_match_j(d1, d2, m1, m2, max_ratio: float = 0.8,

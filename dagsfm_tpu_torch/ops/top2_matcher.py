@@ -9,17 +9,24 @@ Replaces the other Pallas kernels of the JAX package:
 - K4 `_mk_kernel(mode)` (tools/matcher_mfu.py, entry `run_variant`) ->
   `mfu_variant`, driven by dagsfm_tpu_torch/tools/matcher_mfu.py.
 
-The kernels are `csrc/top2_matcher.cu` (design and bound there), built by
-`ops/cuda_build.py`. Each wrapper launches its kernel for CUDA tensors
-and counts the launch; it runs the plain version only for CPU tensors,
-and for a CUDA tensor it launches or raises, never falls back.
+The kernels are `csrc/top2_matcher.cu` (K2 and K4 on the bf16 tensor-core
+tile engine of `csrc/matcher_tiles.cuh`, K3 on f32 FMAs; design and bound
+there), built by `ops/cuda_build.py`. Each wrapper launches its kernel
+for CUDA tensors and counts the launch; it runs the plain version only
+for CPU tensors, and for a CUDA tensor it launches or raises, never falls
+back.
 
 The plain versions add the 128 products of each score in order, one
-rounding per step, as the kernels do, so kernel and plain version agree
-bit for bit and a near-tie cannot flip an index between them. The
-reference's reduction order is XLA's; against it the scores agree to a
-few f32 ulps. The reference's VMEM tile gate (`_pick_tile`,
-`pallas_batch_supported`) is not carried over: K2 and K4 take any K >= 1.
+rounding per step (`ordered_scores`). K3 adds in the same order, so K3
+and its plain version agree bit for bit. K2 and K4 add on the tensor
+cores in their own order, so their scores may differ by a few f32 ulps
+and an index may flip where two scores are that close: the checks hold
+them to the borderline rule (`borderline`): best and second within
+`EPS`, idx and rev equal except where the plain scores' top-2 gap of
+that row or column is under 2 * EPS. The reference's reduction order is
+XLA's; against it the scores agree to a few f32 ulps. The reference's
+VMEM tile gate (`_pick_tile`, `pallas_batch_supported`) is not carried
+over: K2 and K4 take any K >= 1.
 """
 
 from __future__ import annotations
@@ -32,6 +39,10 @@ from dagsfm_tpu_torch.ops import cuda_build
 
 DESC_DIM = 128
 TILE = 128            # K3 keeps the reference's shape rule: multiples of 128
+# Largest error allowed to a bf16 kernel's score: the scores are dot
+# products of unit-norm descriptors, so the sum of |products| is at most
+# about 1 and each of the 128 additions may be off by one f32 ulp at 1.
+EPS = 128 * 2.0 ** -23
 
 top2_batch_launches = 0   # K2
 top2_launches = 0         # K3
@@ -52,7 +63,8 @@ def load_library():
 def ordered_scores(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(..., R, C) f32 scores of a (..., R, D) against b (..., C, D), each
     the sum over k = 0..D-1 of a[k] * b[k], added in that order with the
-    product and the sum rounded separately (the kernels' order)."""
+    product and the sum rounded separately (K3's order; K2 and K4 are
+    within EPS of it)."""
     a, b = a.float(), b.float()
     acc = torch.zeros(a.shape[:-1] + (b.shape[-2],), dtype=torch.float32,
                       device=a.device)
@@ -94,6 +106,34 @@ def mfu_variant_reference(d1, d2, m1, m2, mode: int):
 def top2_batch_reference(d1, d2, m1, m2):
     """Plain version of K2 (= K4 mode 3)."""
     return mfu_variant_reference(d1, d2, m1, m2, 3)
+
+
+def score_gap(sim: torch.Tensor, dim: int) -> torch.Tensor:
+    """Top-2 gap of (..., R, C) scores along `dim`: the max less the max
+    over the other entries (0 for a tied duplicate, inf without a second
+    finite entry, nan where every entry is -inf)."""
+    best, arg = torch.max(sim, dim=dim, keepdim=True)
+    pos = torch.arange(sim.shape[dim], device=sim.device)
+    pos = pos.view([-1] + [1] * (-dim - 1))
+    second = torch.where(pos == arg, -torch.inf, sim).amax(dim)
+    return best.squeeze(dim) - second
+
+
+def borderline_of_scores(sim: torch.Tensor, eps: float = EPS):
+    """(rows, cols) bool masks of (..., R, C) plain scores: the rows whose
+    idx and the columns whose rev may flip when every score moves by at
+    most eps, i.e. whose top-2 gap is under 2 * eps."""
+    return score_gap(sim, -1) < 2 * eps, score_gap(sim, -2) < 2 * eps
+
+
+def borderline(d1, d2, m1, m2, mode: int = 3, eps: float = EPS):
+    """Borderline (rows, cols) of K2 (mode 3) or K4 (`mode`) on these
+    inputs, from the plain version's scores: where a kernel's idx or rev
+    may differ from the plain version's under the borderline rule."""
+    sim = ordered_scores(d1.to(torch.bfloat16), d2.to(torch.bfloat16))
+    if mode >= 3:
+        sim = torch.where(m1[:, :, None] & m2[:, None, :], sim, -torch.inf)
+    return borderline_of_scores(sim, eps)
 
 
 def top2_reference(d1, d2):

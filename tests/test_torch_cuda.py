@@ -1,8 +1,12 @@
 """The CUDA kernels on the card: the fused matcher (K1) and the top-2
 matchers (K2, K3, K4) against their plain versions, their input checks
-and launch counts, the matcher path through K1, and that mapping and
-SIFT repeat bit for bit on the card. Every test here needs a CUDA card
-and skips without one.
+and launch counts, the matcher path through K1, and that the kernels,
+mapping and SIFT repeat bit for bit on the card. K1, K2 and K4 multiply
+on the bf16 tensor cores and are held to the borderline rule (scores
+within EPS; an index may differ only where the plain scores put it
+within 2 EPS of a tie or a threshold); K3 and match_one_pair to their
+plain versions as before. Every test here needs a CUDA card and skips
+without one.
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -17,6 +21,7 @@ import torch
 from chip_smoke import plant_features, planted_pairs
 from dagsfm_tpu_torch.features import matching as t_fm
 from dagsfm_tpu_torch.ops import matcher_kernel as mk
+from dagsfm_tpu_torch.ops import top2_matcher as tm
 from dagsfm_tpu_torch.scene import synthetic as t_syn
 
 torch.set_num_threads(1)
@@ -39,9 +44,27 @@ def test_kernel_equals_plain_version(cuda, K, cross_check):
     assert mk.launches == before + 1
     ref = mk.fused_match_j_reference(d1, d2, m1, m2,
                                      cross_check=cross_check)
+    flag = mk.borderline_rows(d1, d2, m1, m2, cross_check=cross_check)
     assert j.dtype == torch.int32 and j.shape == (8, K)
-    assert torch.equal(j, ref)
+    assert not bool(((j != ref) & ~flag).any())
+    assert int(flag.sum()) <= 8 * K // 20
     assert bool((j[0] == -1).all())          # every column masked
+
+
+def test_masked_slots_may_hold_anything(cuda):
+    """A masked descriptor slot (NaN from a degenerate keypoint, say) must
+    not reach a score: K1 and K2 give what they give with zeros there."""
+    d1, d2, m1, m2 = planted_pairs(4, 300, seed=8, device=cuda)
+    junk1, junk2 = d1.clone(), d2.clone()
+    junk1[~m1] = torch.nan
+    junk2[~m2] = torch.inf
+    z1 = torch.where(m1[..., None], d1, 0.0).contiguous()
+    z2 = torch.where(m2[..., None], d2, 0.0).contiguous()
+    assert torch.equal(mk.fused_match_j(junk1, junk2, m1, m2),
+                       mk.fused_match_j(z1, z2, m1, m2))
+    for x, y in zip(tm.top2_batch(junk1, junk2, m1, m2),
+                    tm.top2_batch(z1, z2, m1, m2)):
+        assert torch.equal(x, y)
 
 
 def test_kernel_ties_take_the_first_index(cuda):
@@ -92,36 +115,49 @@ def test_match_pairs_on_the_card_equals_the_cpu(cuda):
     assert mk.launches == before + -(-len(pairs) // 4)
     cpu = t_fm.match_pairs(descs, masks, pairs, batch_size=4, device="cpu")
     assert gpu.keys() == cpu.keys()
+    T = (lambda a: torch.as_tensor(a)[None])
     for pk in cpu:
-        np.testing.assert_array_equal(gpu[pk], cpu[pk])
+        a, b = pk
+        flag = mk.borderline_rows(T(descs[a]), T(descs[b]), T(masks[a]),
+                                  T(masks[b]))[0].numpy()
+        keep = (lambda m: {(int(r), int(c)) for r, c in m if not flag[r]})
+        assert keep(gpu[pk]) == keep(cpu[pk])
     assert sum(len(m) for m in cpu.values()) > 100
 
 
 # --------------------------------------------------------------- K2, K3, K4
 
-def _same(out, ref):
+def _same(out, ref, border=None):
+    """Kernel outputs against the plain version's: with `border` = (rows,
+    cols) the borderline rule (bf16 kernels), else scores within 2e-6 and
+    indices equal (K3)."""
+    tol = tm.EPS if border is not None else 2e-6
     for a, b in zip(out[:2], ref[:2]):
         fin = torch.isfinite(b)
         assert torch.equal(torch.isfinite(a), fin)
         assert torch.equal(a[~fin], b[~fin])
-        assert bool(((a[fin] - b[fin]).abs() <= 2e-6).all())
-    for a, b in zip(out[2:], ref[2:]):
-        assert torch.equal(a, b)
+        assert bool(((a[fin] - b[fin]).abs() <= tol).all())
+    for a, b, flag in zip(out[2:], ref[2:], border or (None, None)):
+        if flag is None:
+            assert torch.equal(a, b)
+        else:
+            assert not bool(((a != b) & ~flag).any())
 
 
 @pytest.mark.parametrize("K", [1024, 1000, 64, 1])
 def test_top2_batch_and_mfu_variant_equal_plain_versions(cuda, K):
-    from dagsfm_tpu_torch.ops import top2_matcher as tm
     d1, d2, m1, m2 = planted_pairs(8, K, seed=K, device=cuda)
     before = (tm.top2_batch_launches, tm.mfu_launches)
     out = tm.top2_batch(d1, d2, m1, m2)
     torch.cuda.synchronize()
     assert tm.top2_batch_launches == before[0] + 1
-    _same(out, tm.top2_batch_reference(d1, d2, m1, m2))
+    _same(out, tm.top2_batch_reference(d1, d2, m1, m2),
+          tm.borderline(d1, d2, m1, m2))
     assert bool(torch.isneginf(out[0][0]).all())      # every column masked
     for mode in range(4):
         v = tm.mfu_variant(d1, d2, m1, m2, mode)
-        _same(v, tm.mfu_variant_reference(d1, d2, m1, m2, mode))
+        _same(v, tm.mfu_variant_reference(d1, d2, m1, m2, mode),
+              tm.borderline(d1, d2, m1, m2, mode))
         if mode == 3:
             for a, b in zip(v, out):
                 assert torch.equal(a, b)
@@ -130,7 +166,6 @@ def test_top2_batch_and_mfu_variant_equal_plain_versions(cuda, K):
 
 @pytest.mark.parametrize("K1,K2", [(1024, 1024), (128, 384)])
 def test_top2_and_match_one_pair_equal_plain_versions(cuda, K1, K2):
-    from dagsfm_tpu_torch.ops import top2_matcher as tm
     # pair 1: planted_pairs masks every column of pair 0
     d1, d2, m1, m2 = planted_pairs(2, max(K1, K2), seed=K1 + K2, device=cuda)
     d1, d2, m1, m2 = d1[1:], d2[1:], m1[1:], m2[1:]
@@ -147,7 +182,6 @@ def test_top2_and_match_one_pair_equal_plain_versions(cuda, K1, K2):
 
 
 def test_top2_kernels_refuse_what_they_do_not_take(cuda):
-    from dagsfm_tpu_torch.ops import top2_matcher as tm
     d1, d2, m1, m2 = planted_pairs(2, 128, seed=0, device=cuda)
     before = (tm.top2_batch_launches, tm.top2_launches, tm.mfu_launches)
     with pytest.raises(ValueError):
@@ -167,6 +201,19 @@ def test_top2_kernels_refuse_what_they_do_not_take(cuda):
 
 
 # ------------------------------------------------------------ repeatability
+
+@pytest.mark.parametrize("K", [1000, 3712])
+def test_two_launches_give_the_same_bits(cuda, K):
+    """K1 and K2 on the same inputs twice: no float atomics, so the
+    outputs agree to the bit (the column keys' atomicMax is order-free)."""
+    d1, d2, m1, m2 = planted_pairs(16, K, seed=K + 5, device=cuda)
+    a = mk.fused_match_j(d1, d2, m1, m2)
+    b = mk.fused_match_j(d1, d2, m1, m2)
+    assert torch.equal(a, b) and int((a >= 0).sum()) > 0
+    for x, y in zip(tm.top2_batch(d1, d2, m1, m2),
+                    tm.top2_batch(d1, d2, m1, m2)):
+        assert torch.equal(x, y)
+
 
 def test_mapping_repeats_bit_for_bit_on_the_card(cuda):
     """Two mappings of one matching problem give the same bits: every

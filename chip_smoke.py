@@ -14,9 +14,11 @@ any error:
      match_one_pair) and K4 (mfu_variant, every mode) against their
      plain PyTorch versions on the card, with ragged and masked inputs:
      K1, K2 and K4 (bf16 tensor cores) under the borderline rule, K3
-     exactly; two launches of K1 and of K2 on the same inputs must agree
-     bit for bit; each timed with CUDA events beside its bound and one
-     PyTorch call, K1 also at the pixel path's shape (B = 128, K = 3,712);
+     (ordered f32 FMA chains) exactly; two launches of K1, of K2 and of
+     K3 on the same inputs must agree bit for bit; each timed with CUDA
+     events (device time, the launches queued behind a spin kernel)
+     beside its bound and one PyTorch call, K1 also at the pixel path's
+     shape (B = 128, K = 3,712) and K3 at 3,712 x 3,712;
   4. the tool path: dagsfm_tpu_torch.tools.matcher_mfu (K4's four modes
      and K1 at B = 256, K = 1024);
   5. the pixel path: 100 rendered 1024 x 768 images -> SIFT (8192
@@ -24,7 +26,8 @@ any error:
      guided matching -> mapping -> COLMAP model, scored against ground
      truth;
   6. the entry-point path: top2_batch and match_one_pair on the pixel
-     path's descriptors; then they, and K1 on the pixel path's first
+     path's descriptors; then they, K3's forward and reverse top2 on the
+     pair (3,712 x 3,712, to the bit), and K1 on the pixel path's first
      128-pair batch, against their plain versions on the same inputs;
   7. the planted path: a 100-image planted scene (one DAGSfM cluster)
      through FeaturePipeline.match_and_verify -> to_mapper_inputs ->
@@ -271,7 +274,8 @@ def _hold(name: str, out, ref, border=None) -> float:
 def top2_phase(tm, dev, card: str) -> list:
     """K2 and K4 (every mode) at B = 64, K in {1024, 2048, 1000}; K3 and
     match_one_pair at (1024, 1024) and (1024, 2048); then each timed at
-    its timing shape. Returns the kernels-line entries of K2, K3, K4."""
+    its timing shape (K3 also at the pixel path's). Returns the
+    kernels-line entries of K2, K4, K3."""
     from dagsfm_tpu_torch.tools.matcher_mfu import time_ms
     print("== kernel phase K2 / K4: top2_batch and mfu_variant vs plain "
           f"versions (borderline rule, eps = {tm.EPS:.3g}: best / second "
@@ -304,16 +308,20 @@ def top2_phase(tm, dev, card: str) -> list:
                 raise AssertionError("mfu_variant mode 3 != top2_batch")
         del d1, d2, m1, m2, out, again, ref, scores, masked, border
     print("== kernel phase K3: top2 and match_one_pair vs plain versions "
-          "(f32, TF32 off; equal to the bit; matches equal)", flush=True)
+          "(ordered f32 FMAs; equal to the bit; matches equal; two launches "
+          "equal)", flush=True)
     for K1, K2 in ((1024, 1024), (1024, 2048)):
         # pair 1: planted_pairs masks every column of pair 0
         d1, d2, m1, m2 = planted_pairs(2, K2, seed=K1 + K2, device=dev)
         a = d1[1, :K1].float().contiguous()
         b = d2[1].float().contiguous()
         out = tm.top2(a, b)
+        again = tm.top2(a, b)
         ref = tm.top2_reference(a, b)
         print(f" K1={K1} K2={K2}:", flush=True)
         err3 = max(err3, _hold("top2", out, ref))
+        if not all(torch.equal(x, y) for x, y in zip(out, again)):
+            raise AssertionError("two K3 launches on the same inputs differ")
         mm, n = tm.match_one_pair(a, b, m1[1, :K1], m2[1])
         rm, rn = tm.match_one_pair_reference(a, b, m1[1, :K1], m2[1])
         diff = int((mm != rm).any(-1).sum())
@@ -357,26 +365,42 @@ def top2_phase(tm, dev, card: str) -> list:
         "tools/matcher_mfu.py:30", err4, ms4, plain4, bound4, lib_ms,
         ms_by_mode={str(m): v[0] for m, v in by_mode.items()}))
     del d1, d2, m1, m2
-    # K3 at 1024 x 1024 f32; the yardstick is torch.mm with TF32 off
-    torch.backends.cuda.matmul.allow_tf32 = False
-    d1, d2, _, _ = planted_pairs(1, 2048, seed=13, device=dev)
-    a = d1[0, :1024].float().contiguous()
-    b = d2[0, :1024].float().contiguous()
-    ms3 = time_ms(lambda: tm.top2(a, b))
-    plain3 = time_ms(lambda: tm.top2_reference(a, b))
-    lib3 = time_ms(lambda: torch.mm(a, b.T))
-    flops3 = 2.0 * 1024 * 1024 * 128
-    bound3 = _bound(flops3, 2 * 1024 * 128 * 4 + 3 * 1024 * 4,
-                    PEAK_F32_FLOPS)
-    print(f"  top2 1024 x 1024 f32 on {card}: kernel {ms3:.4f} ms, plain "
-          f"{plain3:.4f} ms, torch.mm f32 (TF32 off) yardstick {lib3:.4f} "
-          f"ms, bound {bound3[0]:.4f} ms ({bound3[1]}, f32 FMA peak)",
-          flush=True)
+    # K3 at its timing shape, then at the pixel path's (3,712 slots)
+    ms3, plain3, bound3, lib3 = _time_k3(tm, dev, card, 1024)
+    ms3p, plain3p, bound3p, lib3p = _time_k3(tm, dev, card, PIXEL_SLOTS)
     entries.append(_entry(
         "top2", "dagsfm_tpu_torch/csrc/top2_matcher.cu",
         "dagsfm_tpu/ops/pallas_matcher.py:28", err3, ms3, plain3, bound3,
-        lib3))
+        lib3, pixel_shape={"K1": PIXEL_SLOTS, "K2": PIXEL_SLOTS, "ms": ms3p,
+                           "plain_ms": plain3p, "bound_ms": bound3p[0],
+                           "bound_by": bound3p[1], "library_ms": lib3p}))
     return entries
+
+
+def _time_k3(tm, dev, card: str, K: int):
+    """K3 at K x K f32 beside its bound, its plain version and torch.mm of
+    the same product with TF32 off (the setting is put back after): (ms,
+    plain ms, bound, mm ms)."""
+    from dagsfm_tpu_torch.tools.matcher_mfu import time_ms
+    d1, d2, _, _ = planted_pairs(1, max(K, 2048), seed=13, device=dev)
+    a = d1[0, :K].float().contiguous()
+    b = d2[0, :K].float().contiguous()
+    ms = time_ms(lambda: tm.top2(a, b))
+    plain_ms = time_ms(lambda: tm.top2_reference(a, b), 3)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib_ms = time_ms(lambda: torch.mm(a, b.T))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    flops = 2.0 * K * K * 128
+    bound = _bound(flops, 2 * K * 128 * 4 + 3 * K * 4, PEAK_F32_FLOPS)
+    print(f"  top2 {K} x {K} f32 on {card}: kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+          f"torch.mm f32 yardstick (run with TF32 off) {lib_ms:.4f} ms "
+          f"({flops / lib_ms / 1e9:.1f} TFLOP/s), bound {bound[0]:.4f} ms "
+          f"({bound[1]}, f32 FMA peak)", flush=True)
+    return ms, plain_ms, bound, lib_ms
 
 
 def tool_path(card: str) -> dict:
@@ -688,7 +712,8 @@ def entry_path(fp, dev, card: str) -> dict:
           f"{int(n)} matches; launches {counts}", flush=True)
 
     print("  held against the plain versions on the same inputs (K2 and K1: "
-          "borderline rule; match_one_pair: matches equal):", flush=True)
+          "borderline rule; match_one_pair: matches equal; K3: equal to the "
+          "bit):", flush=True)
     sim = torch.where(m1[:, :, None] & m2[:, None, :],
                       tm.ordered_scores(d1, d2), -torch.inf)
     border = tm.borderline_of_scores(sim)
@@ -700,6 +725,12 @@ def entry_path(fp, dev, card: str) -> dict:
     print(f"  match_one_pair: differing rows {diff}", flush=True)
     if diff or int(n) != int(rn) or int(n) == 0:
         raise AssertionError("match_one_pair disagrees on the pixel path")
+    pa, pb = tm.masked_pair(fa, fb, ma, mb)
+    for name, x, y in (("forward", pa, pb), ("reverse", pb, pa)):
+        _hold(f"top2 {name}, {x.shape[0]} x {y.shape[0]}, the pair's masked "
+              "descriptors (equal to the bit)", tm.top2(x, y),
+              tm.top2_reference(x, y))
+    del pa, pb
     first = fp.select_pairs()[:MATCH_BATCH]
     d1, d2, m1, m2 = batch(first)
     j = mk.fused_match_j(d1, d2, m1, m2)

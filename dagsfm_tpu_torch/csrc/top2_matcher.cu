@@ -14,7 +14,8 @@
 //        2 + reverse argmax
 //        3 + masks (modes 0-2 ignore them)
 //   K3 `_matcher_kernel` (pallas_matcher.py, entry `pallas_top2`): one f32
-//      pair, no masks, forward top-2 only. Here: top2_f32_tiles.
+//      pair, no masks, forward top-2 only. Here: top2_f32_tiles and
+//      top2_f32_fold.
 //
 // For pair b, row r of d1 (R x 128) and column c of d2 (C x 128):
 //   S[r, c] = sum_k d1[r, k] * d2[c, k] in f32 (-inf where m1[r] or m2[c]
@@ -27,125 +28,281 @@
 // order, so scores may differ from the plain version's by a few f32 ulps
 // and the checks hold them to the borderline rule
 // (ops/top2_matcher.borderline). Bound and design: matcher_tiles.cuh.
-//
-// K3 (f32): the sum runs in order k = 0..127 with the product and the sum
-// rounded separately (__fmul_rn / __fadd_rn), so the plain version
-// (ops/top2_matcher.ordered_scores), which adds in the same order, gives
-// the same bits. Bound on an H100: 2*R*C*128 operations against the f32
-// FMA peak (67 TFLOP/s; TF32 tensor cores would change its results).
-// Design: one CTA per 64-row tile walks all 64-column tiles; each tile's
-// scores go to shared memory; 64 threads keep their rows' running (best,
-// second, argbest) in registers (a scan in column order with a strict >
-// keeps the first index on ties). Ragged R and C pad the last tiles in
-// the kernel: rows and columns beyond them never enter a reduction.
 
 #include "matcher_tiles.cuh"
 
-// K3's tile sizes (the engine's are matcher_tiles::BM, ...)
-#define K3_BM 64
-#define K3_BN 64
-#define K3_BK 32
-#define K3_DIM 128
-#define K3_THREADS 256
+// K3 (f32): each score is one ordered chain of fused multiply-adds in one
+// thread, acc = fmaf(d1[r, k], d2[c, k], acc) for k = 0..127 from acc = 0,
+// one rounding per step; no split of k, no tree sum. The plain version
+// (ops/top2_matcher.ordered_fma_scores, an exact emulation of fmaf) gives
+// the same bits however the (row, column) plane is tiled. Bound on an
+// H100: R*C*128 FMAs (2*R*C*128 operations) against the f32 FMA peak (67
+// TFLOP/s: 128 lanes per SM, one FMA each per clock); the inputs, (R + C)
+// * 512 bytes, take far less time (TF32 tensor cores would change the
+// results). Design:
+//   - a 2-D grid, one CTA per (64-row tile of d1, 128-column tile of d2):
+//     1024 x 1024 gives 128 CTAs, 3,712 x 3,712 gives 1,682; three CTAs
+//     fit on an SM (168 registers a thread, 55 KB of shared memory);
+//   - both tiles stream through a 2-stage ring of 32-deep k slices, 16-byte
+//     cp.async copies into rows padded to a stride of 144 bytes, so slice
+//     s + 1 is in flight while slice s computes and the 16-byte reads of 8
+//     neighbouring rows hit distinct banks;
+//   - 128 threads, each an 8 x 8 register tile (rows ty + 8i, columns
+//     tx + 16j): per 4 k, 8 float4 reads of d2, 8 of d1 and 256 FMAs. At
+//     the FMA peak these reads would need all of the 128 bytes a clock
+//     that shared memory returns to an SM; the product alone runs at about
+//     half the peak (PERF.md has the split and what was tried);
+//   - the epilogue: every thread scans its 8 columns of each row in
+//     ascending order with a strict > (a tie goes to second), then a
+//     reduce-scatter over the 16 lanes of the row (24 shuffles a thread,
+//     not 96 for a full butterfly per row) leaves each row's top-2 over
+//     the tile in one pair of lanes, which writes it to scratch;
+//   - a second kernel folds the column tiles' partial top-2s, one warp per
+//     row, its lanes over the tiles, then a shuffle tree. The merge (the
+//     larger best wins, the smaller column on a tie; second = max of the
+//     losing best and the winner's second) ranks by a total order and
+//     takes maxima, so any order of merging gives the bits of a fold in
+//     column order. It is launched as a programmatic dependent of the
+//     first, so its launch overlaps the first's run and it waits
+//     (griddepcontrol.wait) only for its results. No atomics: the results
+//     repeat bit for bit.
+// K1 and K2 must be multiples of 128 (the reference's shape rule; the
+// wrapper checks), so every tile is full. K3_SPLIT, unset in the library
+// the port loads, builds the stages one at a time for tools/k3_split.py:
+// 1 the product and a max per thread, 2 + the tiles' top-2 (no fold).
 
-// 8 consecutive f32 elements (16-byte aligned)
-__device__ __forceinline__ void load8(const float* p, bool ok, float* out) {
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (ok) {
-        a = reinterpret_cast<const float4*>(p)[0];
-        b = reinterpret_cast<const float4*>(p)[1];
-    }
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+namespace k3 {
+constexpr int DIM = 128;
+constexpr int TM = 8, TN = 8;            // register tile of a thread
+constexpr int TY = 8, TX = 16;           // threads of a CTA along rows, columns
+constexpr int BM = TY * TM;              // d1 rows per CTA
+constexpr int BN = TX * TN;              // d2 columns per CTA
+constexpr int THREADS = TX * TY;
+constexpr int BK = 32;                   // k per ring stage
+constexpr int STAGES = 2;
+constexpr int KSTEPS = DIM / BK;
+constexpr int LD = BK + 4;               // padded row stride, in floats
+constexpr int A_FLOATS = BM * LD;        // one stage of the row tile
+constexpr int STAGE_FLOATS = (BM + BN) * LD;
+constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * 4;
+static_assert(TX <= 32 && 32 % TX == 0 && TX % TM == 0 && (TM & (TM - 1)) == 0,
+              "a row group is TX lanes of one warp, TM rows a power of 2");
+}  // namespace k3
+
+__device__ __forceinline__ void cp_async_wait_one() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(K3_THREADS)
-top2_f32_tiles(const float* __restrict__ d1, const float* __restrict__ d2,
-               int R, int C, float* __restrict__ best_out,
-               float* __restrict__ second_out, int* __restrict__ idx_out) {
-    __shared__ float As[K3_BK][K3_BM];
-    __shared__ float Bs[K3_BK][K3_BN];
-    __shared__ float Ss[K3_BM][K3_BN + 1];
-    __shared__ uint8_t rowok[K3_BM];
-    __shared__ uint8_t colok[K3_BN];
+// (b, s, i) <- the top-2 of the union of (b, s, i) and (b2, s2, i2), two
+// partial top-2s over disjoint columns: the larger best wins, the smaller
+// column on a tie, and second = max(the losing best, the winner's second)
+__device__ __forceinline__ void top2_merge(float& b, float& s, int& i,
+                                           float b2, float s2, int i2) {
+    const bool other = b2 > b || (b2 == b && i2 < i);
+    const float lose = other ? b : b2;
+    s = fmaxf(other ? s2 : s, lose);
+    b = other ? b2 : b;
+    i = other ? i2 : i;
+}
 
-    const int tid = threadIdx.x;
-    const int tx = tid % 16, ty = tid / 16;
-    const int row0 = blockIdx.x * K3_BM;
-    const float NEG = -__int_as_float(0x7f800000);   // -inf
+// acc += a.x * b.x, then a.y * b.y, a.z * b.z, a.w * b.w: four steps of
+// the ordered chain, one rounding each
+__device__ __forceinline__ void fma4(float& acc, const float4& a,
+                                     const float4& b) {
+    acc = __fmaf_rn(a.x, b.x, acc);
+    acc = __fmaf_rn(a.y, b.y, acc);
+    acc = __fmaf_rn(a.z, b.z, acc);
+    acc = __fmaf_rn(a.w, b.w, acc);
+}
 
-    if (tid < K3_BM) rowok[tid] = row0 + tid < R;
-    float run_best = NEG, run_second = NEG;
-    int run_idx = 0;
-
-    // loader mapping: 256 threads x 8 elements = one 64 x 32 chunk
-    const int ld_row = tid / 4, ld_k = (tid % 4) * 8;
-
-    for (int col0 = 0; col0 < C; col0 += K3_BN) {
-        if (tid < K3_BN) colok[tid] = col0 + tid < C;
-        float acc[4][4];
+// Reduce-scatter of R rows' top-2s (b, s, i)[0..R) over the lanes that
+// differ in bits M, M/2, .., 1 of tx: each step with R > 1 keeps half of
+// the rows (the upper half where bit M is set), merges them with the
+// partner lane's copies and adds the half's offset to `row`; once one row
+// is left, the remaining steps merge it whole. Three shuffles per row
+// and step: 3 * (R - 1) + 3 * log2(M * 2 / R) in all.
+template <int M, int R>
+__device__ __forceinline__ void scatter_top2(float* b, float* s, int* i,
+                                             int tx, int& row) {
+    if constexpr (M >= 1) {
+        const bool up = tx & M;
+        if constexpr (R > 1) {
+            constexpr int H = R / 2;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-        for (int k0 = 0; k0 < K3_DIM; k0 += K3_BK) {
-            float v[8];
-            int r = row0 + ld_row;
-            load8(d1 + (long long)r * K3_DIM + k0 + ld_k, r < R, v);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) As[ld_k + e][ld_row] = v[e];
-            int c = col0 + ld_row;
-            load8(d2 + (long long)c * K3_DIM + k0 + ld_k, c < C, v);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) Bs[ld_k + e][ld_row] = v[e];
-            __syncthreads();
-#pragma unroll 8
-            for (int kk = 0; kk < K3_BK; ++kk) {
-                float a[4], bb[4];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-                for (int j = 0; j < 4; ++j) bb[j] = Bs[kk][tx + 16 * j];
-                // the product rounds before the add, as the plain
-                // version's multiply and add
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j)
-                        acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(a[i], bb[j]));
-            }
-            __syncthreads();
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                int m = ty + 16 * i, n = tx + 16 * j;
-                Ss[m][n] = (rowok[m] && colok[n]) ? acc[i][j] : NEG;
-            }
-        __syncthreads();
-
-        const int ncols = min(K3_BN, C - col0);
-        const int nrows = min(K3_BM, R - row0);
-        if (tid < nrows) {
-            for (int n = 0; n < ncols; ++n) {
-                float s = Ss[tid][n];
-                if (s > run_best) {
-                    run_second = run_best;
-                    run_best = s;
-                    run_idx = col0 + n;
-                } else if (s > run_second) {
-                    run_second = s;
+            for (int r = 0; r < H; ++r) {
+                const float ob = __shfl_xor_sync(0xffffffffu,
+                                                 up ? b[r] : b[r + H], M);
+                const float os = __shfl_xor_sync(0xffffffffu,
+                                                 up ? s[r] : s[r + H], M);
+                const int oi = __shfl_xor_sync(0xffffffffu,
+                                               up ? i[r] : i[r + H], M);
+                if (up) {
+                    b[r] = b[r + H];
+                    s[r] = s[r + H];
+                    i[r] = i[r + H];
                 }
+                top2_merge(b[r], s[r], i[r], ob, os, oi);
+            }
+            if (up) row += H;
+            scatter_top2<M / 2, H>(b, s, i, tx, row);
+        } else {
+            top2_merge(b[0], s[0], i[0],
+                       __shfl_xor_sync(0xffffffffu, b[0], M),
+                       __shfl_xor_sync(0xffffffffu, s[0], M),
+                       __shfl_xor_sync(0xffffffffu, i[0], M));
+            scatter_top2<M / 2, 1>(b, s, i, tx, row);
+        }
+    }
+}
+
+// The tile's top-2 of each row: every thread's scan of its columns
+// col0 + TX * j (ascending) for each of its rows, then a reduce-scatter
+// over the TX lanes of the row group. Returns in (b, s, i) the top-2 of
+// the thread's row tx / (TX / TM).
+__device__ __forceinline__ void reduce_tile(const float (&acc)[k3::TM][k3::TN],
+                                            int col0, int tx, float& b,
+                                            float& s, int& i) {
+    const float NEG = -__int_as_float(0x7f800000);   // -inf
+    float tb[k3::TM], ts[k3::TM];
+    int ti[k3::TM];
+#pragma unroll
+    for (int r = 0; r < k3::TM; ++r) {
+        tb[r] = acc[r][0];
+        ts[r] = NEG;
+        ti[r] = col0;
+#pragma unroll
+        for (int j = 1; j < k3::TN; ++j) {
+            const float v = acc[r][j];
+            if (v > tb[r]) {
+                ts[r] = tb[r];
+                tb[r] = v;
+                ti[r] = col0 + k3::TX * j;
+            } else {
+                ts[r] = fmaxf(ts[r], v);
             }
         }
-        __syncthreads();
     }
-    if (tid < K3_BM && row0 + tid < R) {
-        best_out[row0 + tid] = run_best;
-        second_out[row0 + tid] = run_second;
-        idx_out[row0 + tid] = run_idx;
+    int row = 0;
+    scatter_top2<k3::TX / 2, k3::TM>(tb, ts, ti, tx, row);
+    b = tb[0];
+    s = ts[0];
+    i = ti[0];
+}
+
+__global__ void __launch_bounds__(k3::THREADS, 3)
+top2_f32_tiles(const float* __restrict__ d1, const float* __restrict__ d2,
+               int K1, float* __restrict__ best, float* __restrict__ second,
+               int* __restrict__ idx) {
+    using namespace k3;
+    // the fold may launch now; it waits for this grid's results
+    asm volatile("griddepcontrol.launch_dependents;");
+    extern __shared__ __align__(16) float smem[];
+    const uint32_t s0 = (uint32_t)__cvta_generic_to_shared(smem);
+    const int tid = threadIdx.x;
+    const int tx = tid % TX, ty = tid / TX;
+    const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+
+    // k slice s of the row tile and of the column tile into stage s % STAGES
+    auto load_slice = [&](int s) {
+        const uint32_t dst = s0 + (s % STAGES) * STAGE_FLOATS * 4;
+        for (int c = tid; c < (BM + BN) * BK / 4; c += THREADS) {
+            const int r = c / (BK / 4), q = c % (BK / 4);
+            const float* src = r < BM ? d1 + (size_t)(row0 + r) * DIM
+                                      : d2 + (size_t)(col0 + r - BM) * DIM;
+            matcher_tiles::cp_async16(dst + (r * LD + q * 4) * 4,
+                                      src + s * BK + q * 4, 16);
+        }
+        matcher_tiles::cp_async_commit();
+    };
+    load_slice(0);
+
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+#pragma unroll 1
+    for (int s = 0; s < KSTEPS; ++s) {
+        if (s + 1 < KSTEPS) {
+            load_slice(s + 1);
+            cp_async_wait_one();               // slice s has arrived
+        } else {
+            matcher_tiles::cp_async_wait_all();
+        }
+        __syncthreads();
+        const float* a_row = smem + (s % STAGES) * STAGE_FLOATS + ty * LD;
+        const float* b_col = smem + (s % STAGES) * STAGE_FLOATS + A_FLOATS +
+                             tx * LD;
+#pragma unroll 2
+        for (int kk = 0; kk < BK; kk += 4) {
+            // 4 k of the thread's 8 columns held in registers, then row by
+            // row; k, k + 1, k + 2, k + 3 in order on every accumulator
+            float4 b[TN];
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+                b[j] = *reinterpret_cast<const float4*>(b_col + j * TX * LD +
+                                                        kk);
+#pragma unroll
+            for (int i = 0; i < TM; ++i) {
+                const float4 a = *reinterpret_cast<const float4*>(
+                    a_row + i * TY * LD + kk);
+#pragma unroll
+                for (int j = 0; j < TN; ++j) fma4(acc[i][j], a, b[j]);
+            }
+        }
+        __syncthreads();                       // stage s % STAGES is free
+    }
+    float b, s;
+    int i;
+#if K3_SPLIT == 1
+    // analysis build (tools/k3_split.py): the product and one max a thread
+    b = acc[0][0];
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) b = fmaxf(b, acc[r][j]);
+    s = b;
+    i = col0 + tx;
+#else
+    reduce_tile(acc, col0 + tx, tx, b, s, i);
+#endif
+    if (tx % (TX / TM) == 0) {                 // one lane per row writes
+        const size_t o = (size_t)(row0 + ty + TY * (tx / (TX / TM))) *
+                             gridDim.y + blockIdx.y;
+        best[o] = b;
+        second[o] = s;
+        idx[o] = i;
+    }
+}
+
+// folds the column tiles' partial top-2s, (K1, ntiles): one warp per row
+__global__ void top2_f32_fold(const float* __restrict__ part_b,
+                              const float* __restrict__ part_s,
+                              const int* __restrict__ part_i, int ntiles,
+                              int K1, float* __restrict__ best,
+                              float* __restrict__ second,
+                              int* __restrict__ idx) {
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (r >= K1) return;                       // the whole warp
+    // the merge's identity: below every partial, column beyond every one
+    float b = -__int_as_float(0x7f800000), s = b;
+    int i = 0x7fffffff;
+    for (int c = lane; c < ntiles; c += 32) {
+        const size_t o = (size_t)r * ntiles + c;
+        top2_merge(b, s, i, part_b[o], part_s[o], part_i[o]);
+    }
+#pragma unroll
+    for (int m = 16; m >= 1; m >>= 1)
+        top2_merge(b, s, i, __shfl_xor_sync(0xffffffffu, b, m),
+                   __shfl_xor_sync(0xffffffffu, s, m),
+                   __shfl_xor_sync(0xffffffffu, i, m));
+    if (lane == 0) {
+        best[r] = b;
+        second[r] = s;
+        idx[r] = i;
     }
 }
 
@@ -204,15 +361,45 @@ extern "C" int top2_batch_launch(const void* d1, const void* d2,
     return (int)cudaErrorInvalidValue;
 }
 
-// K3: d1 (K1, 128), d2 (K2, 128) f32; best, second (K1,) f32; idx (K1,)
-// int32.
+// K3: d1 (K1, 128), d2 (K2, 128) f32, K1 and K2 multiples of 128; out:
+// best (K1,) f32, second (K1,) f32, idx (K1,) int32, one after the other;
+// part: 3 * K1 * (K2 / 128) words of scratch for the column tiles'
+// partial top-2s, (K1, K2 / 128) each (unused when K2 = 128).
 extern "C" int top2_f32_launch(const void* d1, const void* d2, int K1,
-                               int K2, void* best, void* second, void* idx,
-                               void* stream) {
+                               int K2, void* out, void* part, void* stream) {
     if (K1 <= 0 || K2 <= 0) return 0;
-    top2_f32_tiles<<<(K1 + K3_BM - 1) / K3_BM, K3_THREADS, 0,
-                     (cudaStream_t)stream>>>(
-        (const float*)d1, (const float*)d2, K1, K2, (float*)best,
-        (float*)second, (int*)idx);
-    return (int)cudaGetLastError();
+    if (K1 % k3::BM || K2 % k3::BN) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int ntiles = K2 / k3::BN;
+    float* best = (float*)out;
+    float* second = best + K1;
+    int* idx = (int*)(second + K1);
+    float* pb = ntiles > 1 ? (float*)part : best;
+    float* ps = ntiles > 1 ? pb + (size_t)ntiles * K1 : second;
+    int* pi = ntiles > 1 ? (int*)(ps + (size_t)ntiles * K1) : idx;
+    cudaError_t e = cudaFuncSetAttribute(
+        top2_f32_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        k3::SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    top2_f32_tiles<<<dim3(K1 / k3::BM, ntiles), k3::THREADS, k3::SMEM_BYTES,
+                     st>>>((const float*)d1, (const float*)d2, K1, pb, ps,
+                           pi);
+    e = cudaGetLastError();
+#ifdef K3_SPLIT
+    return (int)e;                             // analysis builds: no fold
+#endif
+    if (e != cudaSuccess || ntiles == 1) return (int)e;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((K1 + 7) / 8);          // 8 rows, one per warp
+    cfg.blockDim = dim3(256);
+    cfg.stream = st;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, top2_f32_fold, (const float*)pb,
+                           (const float*)ps, (const int*)pi, ntiles, K1, best,
+                           second, idx);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from dagsfm_tpu_torch.ops import solve as lin
+from dagsfm_tpu_torch.ops.fma import fma32
 
 F64 = torch.float64
 
@@ -74,23 +75,6 @@ def _gauss_kernel1d(sigma: float, radius: int) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
-def _fma32(acc: torch.Tensor, k: float, x: torch.Tensor) -> torch.Tensor:
-    """round_f32(acc + k * x) with one rounding, as a fused multiply-add:
-    the f32 product is exact in f64, the f64 sum is made round-to-odd
-    (TwoSum error, then the last bit forced odd toward it), and an f64
-    value rounded to odd rounds to f32 exactly as the exact sum would."""
-    a = acc.double()
-    p = k * x.double()
-    s = a + p
-    bb = s - a
-    e = (a - (s - bb)) + (p - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(e > 0, torch.full_like(s, math.inf),
-                         torch.full_like(s, -math.inf))
-    s = torch.where((e != 0) & even, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
-
-
 def _blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
     """Separable Gaussian blur of (B, H, W) with zero padding: a sum of
     shifted slices in the reference's order, each step one fused
@@ -101,11 +85,11 @@ def _blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
     xp = torch.nn.functional.pad(img, (radius, radius))
     out = k[0] * xp[:, :, 0:W]
     for i in range(1, 2 * radius + 1):
-        out = _fma32(out, k[i], xp[:, :, i:i + W])
+        out = fma32(out, k[i], xp[:, :, i:i + W])
     xp = torch.nn.functional.pad(out, (0, 0, radius, radius))
     out = k[0] * xp[:, 0:H, :]
     for i in range(1, 2 * radius + 1):
-        out = _fma32(out, k[i], xp[:, i:i + H, :])
+        out = fma32(out, k[i], xp[:, i:i + H, :])
     return out
 
 

@@ -33,6 +33,14 @@ def _nvcc() -> str:
                        "toolkit to build")
 
 
+def nvcc_command(src: Path, out: Path, defines=()) -> list:
+    """nvcc for sm_90a into a shared library, with -D for each define."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", *(f"-D{d}" for d in defines), "-o", str(out),
+            str(src)]
+
+
 def _so_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
@@ -53,10 +61,8 @@ def load(*names: str) -> dict:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[n] = (subprocess.Popen(nvcc_command(CSRC / f"{n}.cu", tmp),
+                                     stdout=subprocess.PIPE,
                                      stderr=subprocess.PIPE, text=True),
                     tmp, so)
     failed = []
@@ -98,8 +104,10 @@ def check_tensors(fn: str, tensors, dev) -> None:
 
 def set_signature(fn, n_ptrs_before: int, ints: list, n_ptrs_after: int):
     """argtypes = pointers, then the given ctypes scalars, then pointers;
-    returns int (the CUDA error code, 0 = success)."""
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs_before + list(ints)
-                   + [ctypes.c_void_p] * n_ptrs_after)
-    fn.restype = ctypes.c_int
+    returns int (the CUDA error code, 0 = success). Set once per function:
+    the wrappers call this on every launch."""
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs_before + list(ints)
+                       + [ctypes.c_void_p] * n_ptrs_after)
+        fn.restype = ctypes.c_int
     return fn

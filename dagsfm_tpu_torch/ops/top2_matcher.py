@@ -10,18 +10,21 @@ Replaces the other Pallas kernels of the JAX package:
   `mfu_variant`, driven by dagsfm_tpu_torch/tools/matcher_mfu.py.
 
 The kernels are `csrc/top2_matcher.cu` (K2 and K4 on the bf16 tensor-core
-tile engine of `csrc/matcher_tiles.cuh`, K3 on f32 FMAs; design and bound
-there), built by `ops/cuda_build.py`. Each wrapper launches its kernel
-for CUDA tensors and counts the launch; it runs the plain version only
-for CPU tensors, and for a CUDA tensor it launches or raises, never falls
-back.
+tile engine of `csrc/matcher_tiles.cuh`, K3 on f32 FMAs on the CUDA cores
+over a 2-D grid; design and bound there), built by `ops/cuda_build.py`.
+Each wrapper launches its kernel for CUDA tensors and counts the launch;
+it runs the plain version only for CPU tensors, and for a CUDA tensor it
+launches or raises, never falls back.
 
-The plain versions add the 128 products of each score in order, one
-rounding per step (`ordered_scores`). K3 adds in the same order, so K3
-and its plain version agree bit for bit. K2 and K4 add on the tensor
-cores in their own order, so their scores may differ by a few f32 ulps
-and an index may flip where two scores are that close: the checks hold
-them to the borderline rule (`borderline`): best and second within
+K3 computes each score as one chain of fused multiply-adds in order
+k = 0..127, one rounding per step; its plain version does the same with
+an exact emulation of the fused multiply-add (`ordered_fma_scores`,
+`ops/fma.py`), so K3 and its plain version agree bit for bit. The plain
+versions of K2 and K4 add the 128 products in order with the product and
+the sum rounded separately (`ordered_scores`). K2 and K4 add on the
+tensor cores in their own order, so their scores may differ by a few f32
+ulps and an index may flip where two scores are that close: the checks
+hold them to the borderline rule (`borderline`): best and second within
 `EPS`, idx and rev equal except where the plain scores' top-2 gap of
 that row or column is under 2 * EPS. The reference's reduction order is
 XLA's; against it the scores agree to a few f32 ulps. The reference's
@@ -36,6 +39,7 @@ import ctypes
 import torch
 
 from dagsfm_tpu_torch.ops import cuda_build
+from dagsfm_tpu_torch.ops.fma import fma32
 
 DESC_DIM = 128
 TILE = 128            # K3 keeps the reference's shape rule: multiples of 128
@@ -54,23 +58,35 @@ def load_library():
     lib = cuda_build.load("top2_matcher")["top2_matcher"]
     cuda_build.set_signature(lib.top2_batch_launch, 4,
                              [ctypes.c_int] * 3, 6)
-    cuda_build.set_signature(lib.top2_f32_launch, 2, [ctypes.c_int] * 2, 4)
+    cuda_build.set_signature(lib.top2_f32_launch, 2, [ctypes.c_int] * 2, 3)
     return lib
 
 
 # ------------------------------------------------------------ plain versions
 
-def ordered_scores(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _ordered(a: torch.Tensor, b: torch.Tensor, step) -> torch.Tensor:
     """(..., R, C) f32 scores of a (..., R, D) against b (..., C, D), each
-    the sum over k = 0..D-1 of a[k] * b[k], added in that order with the
-    product and the sum rounded separately (K3's order; K2 and K4 are
-    within EPS of it)."""
+    acc = step(acc, a[k], b[k]) for k = 0..D-1 from acc = 0."""
     a, b = a.float(), b.float()
     acc = torch.zeros(a.shape[:-1] + (b.shape[-2],), dtype=torch.float32,
                       device=a.device)
     for k in range(a.shape[-1]):
-        acc = acc + a[..., :, None, k] * b[..., None, :, k]
+        acc = step(acc, a[..., :, None, k], b[..., None, :, k])
     return acc
+
+
+def ordered_scores(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Scores (`_ordered`) with the product and the sum rounded
+    separately at each step (the plain arithmetic of K1, K2 and K4, which
+    are within EPS of it)."""
+    return _ordered(a, b, lambda acc, x, y: acc + x * y)
+
+
+def ordered_fma_scores(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Scores (`_ordered`) as ordered chains of fused multiply-adds,
+    acc = fma(a[k], b[k], acc), one rounding per step (K3's
+    arithmetic)."""
+    return _ordered(a, b, fma32)
 
 
 def _top2_of(sim: torch.Tensor, mode: int):
@@ -139,7 +155,7 @@ def borderline(d1, d2, m1, m2, mode: int = 3, eps: float = EPS):
 def top2_reference(d1, d2):
     """Plain version of K3: f32 d1 (K1, D) against d2 (K2, D). Returns
     best, second (K1,) f32 and idx (K1,) int32."""
-    best, second, idx, _ = _top2_of(ordered_scores(d1, d2), 1)
+    best, second, idx, _ = _top2_of(ordered_fma_scores(d1, d2), 1)
     return best, second, idx
 
 
@@ -208,10 +224,15 @@ def mfu_variant(d1, d2, m1, m2, mode: int):
 def top2(d1, d2):
     """K3: best, second (K1,) f32 and argbest (K1,) int32 of each row of
     d1 (K1, 128) against all of d2 (K2, 128), f32, no masks; K1 and K2
-    must be multiples of 128 (the reference's shape rule). The products
-    are full f32 as the reference's CPU interpret mode computes them; the
-    TPU's default-precision f32 product was not. CPU tensors run the
-    plain version; CUDA tensors must be f32, contiguous, on one device."""
+    must be multiples of 128 (the reference's shape rule). Each score is
+    an ordered chain of f32 fused multiply-adds (`ordered_fma_scores`),
+    full f32 as the reference's CPU interpret mode computes it; the TPU's
+    default-precision f32 product was not. idx is the first column that
+    attains best; second is the max over the other columns (a tied
+    duplicate gives second = best). One launch is counted per call (the
+    tile kernel and, for K2 > 128, the fold of its column tiles). CPU
+    tensors run the plain version; CUDA tensors must be f32, contiguous,
+    on one device."""
     global top2_launches
     for name, t in (("d1", d1), ("d2", d2)):
         if t.dim() != 2 or t.shape[1] != DESC_DIM or t.shape[0] % TILE \
@@ -228,27 +249,36 @@ def top2(d1, d2):
         ("d2", d2, torch.float32, (K2, DESC_DIM))), d1.device)
     lib = load_library()
     dev = d1.device
-    best = torch.empty(K1, dtype=torch.float32, device=dev)
-    second = torch.empty(K1, dtype=torch.float32, device=dev)
-    idx = torch.empty(K1, dtype=torch.int32, device=dev)
+    tiles = K2 // TILE
+    out = torch.empty(3 * K1, dtype=torch.float32, device=dev)
+    # the column tiles' partial (best, second, idx), folded by a second
+    # kernel
+    part = torch.empty(3 * tiles * K1 if tiles > 1 else 1,
+                       dtype=torch.float32, device=dev)
     err = lib.top2_f32_launch(d1.data_ptr(), d2.data_ptr(), K1, K2,
-                              best.data_ptr(), second.data_ptr(),
-                              idx.data_ptr(),
+                              out.data_ptr(), part.data_ptr(),
                               torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"top2: CUDA launch error {err}")
+    best, second = out[:K1], out[K1:2 * K1]
+    idx = out[2 * K1:].view(torch.int32)
     top2_launches += 1
     return best, second, idx
 
 
+def masked_pair(d1, d2, m1, m2):
+    """The f32 inputs `match_one_pair` gives K3: invalid d1 rows zeroed,
+    invalid d2 rows sunk to -1e6 (not -inf), exactly as the reference: a
+    d1 row with a negative sum would then score high against them, so
+    parity holds for non-negative (SIFT) descriptors."""
+    return (torch.where(m1[:, None], d1.float(), 0.0).contiguous(),
+            torch.where(m2[:, None], d2.float(), -1e6).contiguous())
+
+
 def _match_one_pair(top2_fn, d1, d2, m1, m2, max_ratio, max_distance):
-    d1m = torch.where(m1[:, None], d1.float(), 0.0)
-    # invalid d2 rows sink to -1e6 (not -inf), exactly as the reference:
-    # a d1 row with a negative sum would then score high against them, so
-    # parity holds for non-negative (SIFT) descriptors
-    d2m = torch.where(m2[:, None], d2.float(), -1e6)
-    best, second, idx = top2_fn(d1m.contiguous(), d2m.contiguous())
-    _, _, rev_idx = top2_fn(d2m.contiguous(), d1m.contiguous())
+    d1m, d2m = masked_pair(d1, d2, m1, m2)
+    best, second, idx = top2_fn(d1m, d2m)
+    _, _, rev_idx = top2_fn(d2m, d1m)
     d_best = torch.sqrt(torch.clamp(2.0 - 2.0 * best, min=0.0))
     d_second = torch.sqrt(torch.clamp(2.0 - 2.0 * second, min=1e-12))
     idx = idx.long()

@@ -6,7 +6,8 @@ Counterpart of tools/matcher_mfu.py. At B = 256 pairs, K = 1024, D = 128
 bf16 it times K4 (`top2_matcher.mfu_variant`) in each of its four modes,
 product + row max, + forward top-2, + reverse argmax, + masks (= K2), and
 K1 (`matcher_kernel.fused_match_j`, ratio test and mutual check in the
-kernel), each with CUDA events over `reps` launches after a warm-up. It
+kernel), each with CUDA events over `reps` launches after a warm-up
+(device time: the launches queue behind a spin kernel, see `time_ms`). It
 prints ms per call, pairs/s, TFLOP/s and the share of the H100's dense
 bf16 peak, each beside the card's name and power limit, as one JSON
 object on stdout, and writes it to PATH when one is given. It never
@@ -19,6 +20,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -38,12 +40,18 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int = 20) -> float:
-    """Mean ms per call of `fn` over `reps` calls after one warm-up call,
-    between two CUDA events."""
+    """Mean device ms per call of `fn` over `reps` calls after one warm-up
+    call, between two CUDA events. A spin kernel ahead of the first event
+    holds the stream while the calls are queued (for up to `reps` times
+    the warm-up's wall time, at most 50 ms), so a call whose host side
+    takes longer than its device work is still timed on the device."""
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    hold_s = min(reps * (time.perf_counter() - t0), 0.05)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(hold_s * 2e9))      # cycles at about 2 GHz
     start.record()
     for _ in range(reps):
         fn()

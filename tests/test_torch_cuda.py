@@ -4,9 +4,9 @@ and launch counts, the matcher path through K1, and that the kernels,
 mapping and SIFT repeat bit for bit on the card. K1, K2 and K4 multiply
 on the bf16 tensor cores and are held to the borderline rule (scores
 within EPS; an index may differ only where the plain scores put it
-within 2 EPS of a tie or a threshold); K3 and match_one_pair to their
-plain versions as before. Every test here needs a CUDA card and skips
-without one.
+within 2 EPS of a tie or a threshold); K3 (one ordered FMA chain per
+score) and match_one_pair equal their plain versions to the bit. Every
+test here needs a CUDA card and skips without one.
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -129,19 +129,19 @@ def test_match_pairs_on_the_card_equals_the_cpu(cuda):
 
 def _same(out, ref, border=None):
     """Kernel outputs against the plain version's: with `border` = (rows,
-    cols) the borderline rule (bf16 kernels), else scores within 2e-6 and
-    indices equal (K3)."""
-    tol = tm.EPS if border is not None else 2e-6
+    cols) the borderline rule (bf16 kernels), else equal to the bit
+    (K3)."""
+    if border is None:
+        for a, b in zip(out, ref):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        return
     for a, b in zip(out[:2], ref[:2]):
         fin = torch.isfinite(b)
         assert torch.equal(torch.isfinite(a), fin)
         assert torch.equal(a[~fin], b[~fin])
-        assert bool(((a[fin] - b[fin]).abs() <= tol).all())
-    for a, b, flag in zip(out[2:], ref[2:], border or (None, None)):
-        if flag is None:
-            assert torch.equal(a, b)
-        else:
-            assert not bool(((a != b) & ~flag).any())
+        assert bool(((a[fin] - b[fin]).abs() <= tm.EPS).all())
+    for a, b, flag in zip(out[2:], ref[2:], border):
+        assert not bool(((a != b) & ~flag).any())
 
 
 @pytest.mark.parametrize("K", [1024, 1000, 64, 1])
@@ -181,6 +181,41 @@ def test_top2_and_match_one_pair_equal_plain_versions(cuda, K1, K2):
     assert torch.equal(m, rm) and int(n) == int(rn) > 0
 
 
+def _k3_inputs(K1, K2, seed, device):
+    """f32 (K1, 128) and (K2, 128) planted descriptors (pair 1 of
+    planted_pairs, whose pair 0 has every column masked)."""
+    d1, d2, _, _ = planted_pairs(2, max(K1, K2), seed=seed, device=device)
+    return d1[1, :K1].float().contiguous(), d2[1, :K2].float().contiguous()
+
+
+@pytest.mark.parametrize("K1,K2", [(128, 3712), (3712, 128), (3712, 3712)])
+def test_top2_equals_plain_version_to_the_bit(cuda, K1, K2):
+    """K3 at the pixel path's 3,712 slots, as row and as column count: one
+    ordered FMA chain per score, so every bit agrees however the grid
+    splits the columns."""
+    a, b = _k3_inputs(K1, K2, seed=K1 + 2 * K2, device=cuda)
+    _same(tm.top2(a, b), tm.top2_reference(a, b))
+
+
+def test_top2_ties_zero_rows_and_sunk_columns(cuda):
+    """A duplicate column in another column tile than its twin (so another
+    CTA) keeps the first index and gives second = best; an all-zero d1 row scores 0
+    everywhere (idx 0); d2 rows at -1e6, as match_one_pair sinks invalid
+    ones."""
+    a, b = _k3_inputs(1024, 2048, seed=21, device=cuda)
+    b[1500] = b[40]          # column tile 11 against tile 0: the fold merges
+    a[7] = b[40]
+    a[9] = 0.0
+    b[3] = -1e6
+    b[1800:1900] = -1e6
+    out = tm.top2(a, b)
+    _same(out, tm.top2_reference(a, b))
+    best, second, idx = out
+    assert int(idx[7]) == 40 and float(second[7]) == float(best[7])
+    assert int(idx[9]) == 0 and float(best[9]) == float(second[9]) == 0.0
+    assert bool((idx != 3).all()) and bool(((idx < 1800) | (idx >= 1900)).all())
+
+
 def test_top2_kernels_refuse_what_they_do_not_take(cuda):
     d1, d2, m1, m2 = planted_pairs(2, 128, seed=0, device=cuda)
     before = (tm.top2_batch_launches, tm.top2_launches, tm.mfu_launches)
@@ -204,14 +239,19 @@ def test_top2_kernels_refuse_what_they_do_not_take(cuda):
 
 @pytest.mark.parametrize("K", [1000, 3712])
 def test_two_launches_give_the_same_bits(cuda, K):
-    """K1 and K2 on the same inputs twice: no float atomics, so the
-    outputs agree to the bit (the column keys' atomicMax is order-free)."""
+    """K1, K2 and K3 on the same inputs twice: no float atomics, so the
+    outputs agree to the bit (the column keys' atomicMax is order-free;
+    K3 folds its column tiles in column order)."""
     d1, d2, m1, m2 = planted_pairs(16, K, seed=K + 5, device=cuda)
     a = mk.fused_match_j(d1, d2, m1, m2)
     b = mk.fused_match_j(d1, d2, m1, m2)
     assert torch.equal(a, b) and int((a >= 0).sum()) > 0
     for x, y in zip(tm.top2_batch(d1, d2, m1, m2),
                     tm.top2_batch(d1, d2, m1, m2)):
+        assert torch.equal(x, y)
+    n = K // 128 * 128
+    f1, f2 = (d[1, :n].float().contiguous() for d in (d1, d2))
+    for x, y in zip(tm.top2(f1, f2), tm.top2(f1, f2)):
         assert torch.equal(x, y)
 
 

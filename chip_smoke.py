@@ -21,21 +21,33 @@ any error:
      shape (B = 128, K = 3,712) and K3 at 3,712 x 3,712;
   4. the tool path: dagsfm_tpu_torch.tools.matcher_mfu (K4's four modes
      and K1 at B = 256, K = 1024);
-  5. the pixel path: 100 rendered 1024 x 768 images -> SIFT (8192
+  5. the pixel path, cut to 50 images (1,225 pairs; 100 until the
+     distorted path joined): rendered 1024 x 768 images -> SIFT (8192
      features) -> exhaustive matching -> full E/F/H verification with
      guided matching -> mapping -> COLMAP model, scored against ground
      truth;
-  6. the entry-point path: top2_batch and match_one_pair on the pixel
-     path's descriptors; then they, K3's forward and reverse top2 on the
-     pair (3,712 x 3,712, to the bit), and K1 on the pixel path's first
-     128-pair batch, against their plain versions on the same inputs;
-  7. the planted path: a 100-image planted scene (one DAGSfM cluster)
+  6. the distorted path: 100 images rendered through a SIMPLE_RADIAL
+     camera (f 1097, k1 = -0.12) -> SIFT -> exhaustive matching ->
+     uncalibrated F/H verification with guided matching -> mapping from
+     one blind SIMPLE_RADIAL camera (f = 1.2 max(W, H), k1 = 0, no prior;
+     BA refines f and k1) -> COLMAP model, held to
+     tests/test_e2e_distorted.py's limits carried to 100 images;
+  7. the entry-point path: top2_batch and match_one_pair on the
+     distorted path's descriptors; then they, K3's forward and reverse
+     top2 on the pair (3,712 x 3,712, to the bit), and K1 on the
+     distorted path's first 128-pair batch, against their plain versions
+     on the same inputs;
+  8. the planted path: a 100-image planted scene (one DAGSfM cluster)
      through FeaturePipeline.match_and_verify -> to_mapper_inputs ->
      IncrementalMapper.reconstruct -> write_model_bin, scored against
-     ground truth.
+     ground truth;
+  9. the BA path: bundle adjustment with the iterative PCG solver at
+     bench_suite.py's 1,000 cameras and 50,000 points, first refining a
+     perturbed SIMPLE_RADIAL camera's f and k1 (joint PCG), then 5 LM
+     iterations of the plain pinhole solve, timed.
 Every kernel launch counter is zeroed just before each path and read
-just after it. It prints a `kernels` JSON line, the card line and, last,
-the result.
+just after it. It prints a `kernels` JSON line (K1's launches are the
+distorted path's), the card line and, last, the result.
 
 `plant_features` makes the planted path's data: each image's keypoints
 are its visible scene points (in point order, as
@@ -61,6 +73,9 @@ K_SLOTS = 1024           # keypoint slots per image on the main path
 DESC_NOISE = 0.02        # per-dimension descriptor noise of an observation
 MATCH_BATCH = 128        # pairs per matcher launch on the main path
 PIXEL_SLOTS = 3712       # keypoint slots per image on the pixel path
+K1_TRUE = -0.12          # the distorted path's true radial distortion
+PIXEL_IMAGES = 50        # the pixel path, cut to make room for the
+                         # distorted path within the run's time limit
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 FMA outside
 # the tensor cores, HBM3
@@ -106,6 +121,23 @@ def plant_features(scene, K: int = K_SLOTS, noise: float = DESC_NOISE,
         mask[:n + nd] = True
         kps[i + 1], descs[i + 1], masks[i + 1] = kp, desc, mask
     return kps, descs, masks
+
+
+def distort_keypoints(scene, images: dict, camera, noise: float = 0.0,
+                      seed: int = 0) -> dict:
+    """The keypoints of synthetic.to_matching_problem's images, projected
+    again through `camera` (any model; e.g. SIMPLE_RADIAL with k1 != 0)
+    plus N(0, noise) pixels: the images' records with xys replaced."""
+    from dagsfm_tpu_torch.scene import cameras
+    rng = np.random.default_rng(seed)
+    params = torch.as_tensor(camera.padded_params())
+    for i, rec in images.items():
+        vis = np.nonzero(scene.visible[i - 1])[0]
+        Xc = scene.points[vis] @ scene.R[i - 1].T + scene.t[i - 1]
+        rec.xys = cameras.img_from_cam(
+            camera.model_id, params, torch.as_tensor(Xc)).numpy() + \
+            rng.normal(0.0, noise, (len(vis), 2))
+    return images
 
 
 def planted_pairs(B: int, K: int, seed: int, device):
@@ -508,11 +540,13 @@ def _profile_5pt(dev, card: str) -> None:
               f"{e.self_cpu_time_total / 1e3:.3f} ms", flush=True)
 
 
-def _write_and_gate(rec, sc, n: int, ate_max: float, rot_max: float):
+def _write_and_gate(rec, sc, n: int, ate_max: float, rot_max: float,
+                    min_reg: int | None = None):
     """Write the COLMAP model and read it back, then hold the
-    reconstruction to its gate: n/n registered, ATE < ate_max, mean
-    rotation error < rot_max degrees, the model read back whole and
-    finite. Returns (pose errors, write + read seconds)."""
+    reconstruction to its gate: at least min_reg (default n) of n
+    registered, ATE < ate_max, mean rotation error < rot_max degrees,
+    the model read back whole and finite. Returns (pose errors, write +
+    read seconds)."""
     from dagsfm_tpu_torch.scene import io as scene_io
     from dagsfm_tpu_torch.scene import synthetic
     t0 = time.perf_counter()
@@ -525,11 +559,13 @@ def _write_and_gate(rec, sc, n: int, ate_max: float, rot_max: float):
           f"ATE {err['ate']:.6f}, rotation error mean "
           f"{err['rot_err_deg_mean']:.6f} deg, max "
           f"{err['rot_err_deg_max']:.6f} deg", flush=True)
-    if err["num_reg"] != n or err["ate"] >= ate_max \
-            or err["rot_err_deg_mean"] >= rot_max:
+    if err["num_reg"] < (n if min_reg is None else min_reg) \
+            or err["ate"] >= ate_max or err["rot_err_deg_mean"] >= rot_max:
         raise AssertionError(f"reconstruction out of limits: {err}")
-    if back.num_reg_images() != n or \
-            len(back.points3D) != rec.num_points3D():
+    if back.num_reg_images() != err["num_reg"] or \
+            len(back.points3D) != rec.num_points3D() or \
+            {c: (x.model_id, x.params) for c, x in back.cameras.items()} != \
+            {c: (x.model_id, x.params) for c, x in rec.cameras.items()}:
         raise AssertionError("COLMAP model did not read back whole")
     for p in back.points3D.values():
         if not np.all(np.isfinite(p.xyz)):
@@ -598,9 +634,14 @@ def main_path(dev, card: str, num_images: int,
 
 
 def pixel_path(dev, card: str, num_images: int, max_features: int,
-               W: int = 1024, H: int = 768):
+               W: int = 1024, H: int = 768, distorted: bool = False):
     """Rendered pixels to a COLMAP model: returns (launch counts, the
-    FeaturePipeline)."""
+    FeaturePipeline). `distorted`: the images are rendered through a
+    SIMPLE_RADIAL camera (k1 = K1_TRUE) and mapped from one blind
+    SIMPLE_RADIAL camera shared by every image (f = 1.2 max(W, H),
+    k1 = 0, no prior), as tests/test_e2e_distorted.py's variant B;
+    otherwise each image has a SIMPLE_PINHOLE camera with the true focal
+    as its prior."""
     from dagsfm_tpu_torch.features import sift
     from dagsfm_tpu_torch.pipeline.feature_pipeline import (
         FeaturePipeline, FeaturePipelineOptions)
@@ -611,8 +652,10 @@ def pixel_path(dev, card: str, num_images: int, max_features: int,
                                                          MapperOptions)
 
     f = 480.0 * W / 448                               # 1097 at W = 1024
-    print(f"== pixel path: {num_images} rendered {W} x {H} images, SIFT "
-          f"max_num_features={max_features}, full E/F/H, guided matching",
+    name = "distorted path" if distorted else "pixel path"
+    verif = "uncalibrated F/H" if distorted else "full E/F/H"
+    print(f"== {name}: {num_images} rendered {W} x {H} images, SIFT "
+          f"max_num_features={max_features}, {verif}, guided matching",
           flush=True)
     # tests/test_e2e_pixels.py's scene at one cluster of images and a
     # 1024 x 768 camera (1097 = 480 * 1024 / 448 keeps its field of view)
@@ -622,11 +665,19 @@ def pixel_path(dev, card: str, num_images: int, max_features: int,
         point_cloud_extent=3.5, ring_height_jitter=0.3)
     sc = synthetic.generate(spec)
     t0 = time.perf_counter()
-    images = synthetic.render_images(sc, device=dev)
+    if distorted:
+        truth = cameras.Camera(1, cameras.SIMPLE_RADIAL, W, H,
+                               (f, W / 2.0, H / 2.0, K1_TRUE))
+        images = synthetic.render_images(sc, camera=truth, device=dev)
+        blind = cameras.make_simple_camera(1, W, H, model="SIMPLE_RADIAL")
+        cams = {i: blind for i in images}
+    else:
+        images = synthetic.render_images(sc, device=dev)
+        cams = {i: cameras.make_simple_camera(i, W, H, focal=f)
+                for i in images}
     torch.cuda.synchronize()
     print(f"  set-up: rendering {time.perf_counter() - t0:.3f} s on {card}",
           flush=True)
-    cams = {i: cameras.make_simple_camera(i, W, H, focal=f) for i in images}
     opts = FeaturePipelineOptions(guided_matching=True,
                                   two_view_essential_only=False)
     opts.sift = sift.SiftOptions(max_num_features=max_features)
@@ -646,8 +697,8 @@ def pixel_path(dev, card: str, num_images: int, max_features: int,
     kp = [int(fp.masks[i].sum()) for i in ids]
     configs = {}
     for r in fp.two_view.values():
-        name = tvc.CONFIG_NAMES[r.config]
-        configs[name] = configs.get(name, 0) + 1
+        cname = tvc.CONFIG_NAMES[r.config]
+        configs[cname] = configs.get(cname, 0) + 1
     print(f"  keypoints per image: mean {np.mean(kp):.1f}, min {min(kp)}, "
           f"max {max(kp)}, slots {fp.bank.desc.shape[1]}; pairs {n_pairs}, "
           f"K1 launches {_counts()['fused_matcher']}; verified pairs "
@@ -662,11 +713,28 @@ def pixel_path(dev, card: str, num_images: int, max_features: int,
           f"classified, {fp.num_classified / tm_['verification']:.2f}"
           f" pairs/s; guided matching {tm_['guided_matching']:.3f} s of it)",
           flush=True)
-    rec = IncrementalMapper(cams2, imgs2, graph, MapperOptions(seed=0),
-                            device=dev).reconstruct()
+    mapper = IncrementalMapper(cams2, imgs2, graph, MapperOptions(seed=0),
+                               device=dev)
+    rec = mapper.reconstruct()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    err, t_model = _write_and_gate(rec, sc, num_images, 0.1, 1.0)
+    if distorted:
+        # the test's limits at 100 images: its 10 of 12 registered
+        err, t_model = _write_and_gate(rec, sc, num_images, 0.15, 1.5,
+                                       min_reg=math.ceil(num_images * 10
+                                                         / 12))
+        cam = rec.cameras[1]
+        print(f"  camera: {cam.model_name}, refined f {cam.params[0]:.4f} "
+              f"(truth {f:.4f}, start {blind.params[0]:.4f}), k1 "
+              f"{cam.params[3]:.6f} (truth {K1_TRUE}); focal-grid factors "
+              f"picked {mapper.focal_grid_factors} (the grid runs on a "
+              "camera's first registration only; this shared camera's is "
+              "the initial pair)", flush=True)
+        if cam.model_name != "SIMPLE_RADIAL" or \
+                not cam.params[3] < 0.3 * K1_TRUE:
+            raise AssertionError(f"distorted path: camera {cam}")
+    else:
+        err, t_model = _write_and_gate(rec, sc, num_images, 0.1, 1.0)
     counts = _counts()                                # counts read
     print(f"  on {card}: mapping {t2 - t1:.3f} s "
           f"({err['num_reg'] / (t2 - t1):.3f} images/s), model write+read "
@@ -674,15 +742,98 @@ def pixel_path(dev, card: str, num_images: int, max_features: int,
           f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
           "GiB", flush=True)
     if counts["fused_matcher"] != math.ceil(n_pairs / MATCH_BATCH):
-        raise AssertionError(f"pixel path: K1 launches {counts}")
+        raise AssertionError(f"{name}: K1 launches {counts}")
     return counts, fp
 
 
+def ba_path(dev, card: str, num_cameras: int = 1000,
+            num_points: int = 50000) -> dict:
+    """Bundle adjustment in the reference's ITERATIVE_SCHUR regime at
+    bench_suite.py's size: first intrinsics refinement (PCG on the joint
+    system) from a SIMPLE_RADIAL camera with focal +10 % and k1 = 0.05,
+    held to tests/test_bundle_adjustment.py's
+    test_recovers_focal_and_k1_iterative limits; then 5 LM iterations
+    of the plain pinhole solve on the same scene, timed as bench_suite
+    times them. Returns the launch counts."""
+    from dagsfm_tpu_torch.scene import cameras
+    from dagsfm_tpu_torch.scene import synthetic
+    from dagsfm_tpu_torch.sfm import bundle_adjustment as ba
+
+    print(f"== BA path: {num_cameras} cameras, {num_points} points, "
+          "max_track_length 20, pixel noise 0.5, iterative PCG", flush=True)
+    const = np.zeros(num_cameras, bool)
+    const[:2] = True
+    _zero_counts()                                    # counts zeroed
+    t0 = time.perf_counter()
+    sc = synthetic.generate(synthetic.SyntheticSceneSpec(
+        num_cameras=num_cameras, num_points=num_points, pixel_noise=0.5,
+        seed=0, max_track_length=20, camera_model="SIMPLE_RADIAL"))
+    f_gt = sc.camera.params[0]
+    base = synthetic.to_scene_arrays(sc, dev)
+    del sc
+    rng = np.random.default_rng(1)
+    base = base._replace(points_xyz=base.points_xyz + torch.as_tensor(
+        rng.normal(0, 0.02, tuple(base.points_xyz.shape)), device=dev))
+    cp = base.cam_params.clone()
+    cp[0, 0] *= 1.10
+    cp[0, 3] = 0.05
+    prob = ba.make_problem(
+        base._replace(cam_params=cp), max_track_len=20, const_image=const,
+        cam_refine=cameras.intrinsics_refine_mask(
+            base.cam_model_id.cpu().numpy(), True, False, True))
+    n_obs = prob.obs_xy.shape[0]
+    print(f"  set-up: scene and problem {time.perf_counter() - t0:.3f} s; "
+          f"{n_obs} observations", flush=True)
+    opts = ba.BAOptions(max_iterations=30, loss="trivial", refine_focal=True,
+                        refine_extra=True, solver="iterative")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, st = ba.solve(prob, opts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    f_rec = float(out.cam_params[0, 0])
+    k_rec = float(out.cam_params[0, 3])
+    print(f"  joint iterative on {card}: {st.num_iterations} LM iterations, "
+          f"{st.cg_iterations} CG iterations, {secs:.3f} s "
+          f"({st.num_iterations / secs:.3f} LM iterations/s); cost "
+          f"{st.initial_cost:.6g} -> {st.final_cost:.6g}; f {f_rec:.4f} "
+          f"(truth {f_gt:.4f}, start {1.1 * f_gt:.4f}), k1 {k_rec:.3g} "
+          "(truth 0, start 0.05)", flush=True)
+    if not (abs(f_rec - f_gt) / f_gt < 0.01 and abs(k_rec) < 0.01
+            and st.final_cost < 0.2 * st.initial_cost):
+        raise AssertionError("BA path: intrinsics not recovered")
+    del prob, out
+    # the scene's true k1 is 0: its unperturbed arrays are the pinhole
+    # problem
+    t0 = time.perf_counter()
+    prob = ba.make_problem(base._replace(cam_model_id=torch.full_like(
+        base.cam_model_id, cameras.SIMPLE_PINHOLE)), max_track_len=20,
+        const_image=const)
+    del base
+    print(f"  set-up: pinhole problem {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    iters = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st = ba.solve(prob, ba.BAOptions(max_iterations=iters, ftol=0.0,
+                                        solver="iterative"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"  plain iterative on {card}: {iters} LM iterations in "
+          f"{secs:.3f} s, {iters / secs:.3f} LM iterations/s, "
+          f"{st.cg_iterations / iters:.1f} CG iterations per LM step, "
+          f"{prob.obs_xy.shape[0]} observations; cost "
+          f"{st.initial_cost:.6g} -> {st.final_cost:.6g}", flush=True)
+    if not st.final_cost < st.initial_cost:
+        raise AssertionError("BA path: the plain solve did not descend")
+    return _counts()                                  # counts read
+
+
 def entry_path(fp, dev, card: str) -> dict:
-    """top2_batch (K2) on 64 ring-neighbour pairs of the pixel path's
-    bank and match_one_pair (K3) on its first pair, as a user calls them;
-    then each, and K1 on the first 128-pair batch the pixel path matched,
-    held against its plain version on the same inputs."""
+    """top2_batch (K2) on 64 ring-neighbour pairs of a pixel path's bank
+    (the distorted path's) and match_one_pair (K3) on its first pair, as
+    a user calls them; then each, and K1 on the first 128-pair batch that
+    path matched, held against its plain version on the same inputs."""
     from dagsfm_tpu_torch.ops import matcher_kernel as mk
     from dagsfm_tpu_torch.ops import top2_matcher as tm
 
@@ -736,7 +887,7 @@ def entry_path(fp, dev, card: str) -> dict:
     j = mk.fused_match_j(d1, d2, m1, m2)
     ref = mk.fused_match_j_reference(d1, d2, m1, m2)
     flag = mk.borderline_rows(d1, d2, m1, m2)
-    _hold_j(f"fused matcher, the pixel path's first batch (B={len(first)}, "
+    _hold_j(f"fused matcher, the distorted path's first batch (B={len(first)}, "
             f"K={d1.shape[1]})", j, ref, flag)
     return counts
 
@@ -746,7 +897,8 @@ def main() -> int:
     ap.add_argument("--num-images", type=int, default=100,
                     help="images of the planted path")
     ap.add_argument("--max-features", type=int, default=8192,
-                    help="SIFT max_num_features on the pixel path")
+                    help="SIFT max_num_features on the pixel and distorted "
+                         "paths")
     ap.add_argument("--breakdown", action="store_true",
                     help="time the planted path's inner functions (with a "
                          "sync around each) and profile one 5-point solve")
@@ -780,9 +932,13 @@ def main() -> int:
     k2, k4, k3 = top2_phase(tm, dev, card)
     tool = tool_path(card)
     if args.max_features != 8192:
-        print(f"== pixel path cut to max_num_features {args.max_features} "
-              "(default 8192)", flush=True)
-    pixel, fp = pixel_path(dev, card, 100, args.max_features)
+        print(f"== pixel and distorted paths cut to max_num_features "
+              f"{args.max_features} (default 8192)", flush=True)
+    print(f"== pixel path cut to {PIXEL_IMAGES} images (100 before the "
+          "distorted path joined)", flush=True)
+    pixel, _ = pixel_path(dev, card, PIXEL_IMAGES, args.max_features)
+    distorted, fp = pixel_path(dev, card, 100, args.max_features,
+                               distorted=True)
     entry = entry_path(fp, dev, card)
     del fp
     if args.num_images != 100:
@@ -791,9 +947,10 @@ def main() -> int:
     if args.breakdown:
         _profile_5pt(dev, card)
     planted = main_path(dev, card, args.num_images, args.breakdown)
+    bapath = ba_path(dev, card)
     paths = {"tool": tool, "planted": planted, "pixel": pixel,
-             "entry": entry}
-    for e, path in ((k1, "pixel"), (k2, "entry"), (k3, "entry"),
+             "distorted": distorted, "entry": entry, "ba": bapath}
+    for e, path in ((k1, "distorted"), (k2, "entry"), (k3, "entry"),
                     (k4, "tool")):
         e["launches"] = paths[path][e["name"]]
         e["launches_by_path"] = {p: c[e["name"]] for p, c in paths.items()}

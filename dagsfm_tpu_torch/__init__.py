@@ -6,17 +6,21 @@ It imports `torch` and numpy only — never `jax`, never `dagsfm_tpu`.
 
 Ported so far (the per-cluster reconstruction from rendered pixels):
   ops/       — rotations, polynomials, triangulation, epipolar (E, F, H),
-               RANSAC with injectable sampling, Umeyama, P3P + pose
-               refinement, projection, E/F/H two-view classification,
+               RANSAC with injectable sampling, Umeyama, P3P, EPnP,
+               pose refinement, projection, E/F/H two-view classification,
                NaN-on-failure solves, and every TPU kernel as CUDA
                (csrc/): the fused matcher K1 and the top-2 matchers
                K2-K4, built by ops/cuda_build.py
-  scene/     — pinhole cameras, reconstruction containers, COLMAP .bin
+  scene/     — all eleven camera models (distortion, Newton
+               undistortion, the BA intrinsics increment),
+               reconstruction containers, COLMAP .bin
                I/O, synthetic scenes and rendered images
   features/  — SIFT, descriptor bank, exhaustive pair matching, guided
                matching
-  sfm/       — correspondence graph, dense-Schur bundle adjustment,
-               incremental mapper
+  sfm/       — correspondence graph, bundle adjustment (dense Schur and
+               iterative PCG, each also joint with the intrinsics),
+               incremental mapper (focal grid for cameras without a
+               prior)
   pipeline/  — FeaturePipeline (extract + match + verify + mapper inputs)
   tools/     — matcher_mfu, the matcher's stage split on the card
   interop.py — turns the JAX package's state (numpy / dicts) into the

@@ -20,6 +20,7 @@ from dagsfm_tpu_torch.scene import cameras as cm
 from dagsfm_tpu_torch.scene.reconstruction import (ImageRecord, Point3DRecord,
                                                    Reconstruction, SceneArrays,
                                                    scene_arrays_from_numpy)
+from dagsfm_tpu_torch.sfm import bundle_adjustment as ba
 
 
 def scene_arrays(fields: dict, device=None) -> SceneArrays:
@@ -28,7 +29,22 @@ def scene_arrays(fields: dict, device=None) -> SceneArrays:
         {k: np.asarray(v) for k, v in fields.items()}, devmod.resolve(device))
 
 
+def ba_problem(fields: dict, device=None) -> ba.BAProblem:
+    """Port BAProblem from the reference's `BAProblem._asdict()`: its
+    live observations (obs_mask) with the same poses, cameras of any
+    model, points, pinned images and points and cam_refine mask."""
+    dev = devmod.resolve(device)
+    f = {k: np.array(v) for k, v in fields.items()}
+    live = f["obs_mask"].astype(bool)
+    return ba.problem_from_observations(
+        f["image_qvec"], f["image_tvec"], f["image_camidx"],
+        f["cam_model_id"], f["cam_params"], f["points"],
+        f["obs_image"][live], f["obs_point"][live], f["obs_xy"][live],
+        f["const_image"], f["const_points"], f["cam_refine"], device=dev)
+
+
 def camera(c) -> cm.Camera:
+    """Port Camera of any model from the reference's (prior_focal kept)."""
     return cm.Camera(int(c.camera_id), int(c.model_id), int(c.width),
                      int(c.height), tuple(float(p) for p in c.params),
                      prior_focal=bool(getattr(c, "prior_focal", True)))

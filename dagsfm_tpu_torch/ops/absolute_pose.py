@@ -1,7 +1,7 @@
-"""Absolute pose: Grunert P3P, reprojection error, pose refinement.
+"""Absolute pose: Grunert P3P, EPnP, reprojection error, refinement.
 
-Port of `p3p`, `pose_reproj_error` and `refine_pose` from
-dagsfm_tpu/ops/absolute_pose.py (EPnP waits for a later slice).
+Port of `p3p`, `epnp`, `pose_reproj_error` and `refine_pose` from
+dagsfm_tpu/ops/absolute_pose.py, over leading batch dims.
 World->cam (R, t); `uv` are normalized image coordinates.
 """
 
@@ -71,6 +71,136 @@ def p3p(points: torch.Tensor, uv: torch.Tensor):
     _, R, t = ume.umeyama(world, cam, with_scale=False)
     ok = (s1 > 0) & (s2 > 0) & (s3 > 0)
     return R, t, vmask & ok
+
+
+_PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
+
+
+def _pair_diffs(c: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 3) control points -> (..., 6, 3) pairwise differences."""
+    return torch.stack([c[..., i, :] - c[..., j, :] for i, j in _PAIRS], -2)
+
+
+def _lstsq(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Minimum-norm least squares through the pseudo-inverse (SVD, as
+    jnp.linalg.lstsq; on CUDA, torch.linalg.lstsq is QR only and needs
+    full rank)."""
+    return (torch.linalg.pinv(A) @ b[..., None])[..., 0]
+
+
+def epnp(points: torch.Tensor, uv: torch.Tensor, mask=None,
+         gn_iters: int = 8):
+    """EPnP (Lepetit et al.) with Gauss-Newton refinement of the betas,
+    over a leading batch: points (B, N, 3), uv (B, N, 2), mask (B, N).
+    Returns (R (B, 3, 3), t (B, 3), ok (B,)). As the reference: control
+    points from the weighted centroid and principal directions, the four
+    smallest eigenvectors of MᵀM, the beta cases N = 1, 2, 3 each refined
+    and the one of least reprojection error kept. eigh's signs and
+    near-degenerate bases differ between libraries; the betas and the
+    flip to positive depth absorb a sign, so R and t agree."""
+    B, N = points.shape[:2]
+    dt, dev = points.dtype, points.device
+    if mask is None:
+        mask = torch.ones((B, N), dtype=torch.bool, device=dev)
+    w = mask.to(dt)
+    wsum = torch.clamp(w.sum(-1), min=1.0)
+
+    cw0 = (points * w[..., None]).sum(-2) / wsum[:, None]
+    centered = (points - cw0[:, None]) * w[..., None]
+    cov = centered.transpose(-1, -2) @ centered / wsum[:, None, None]
+    bad = ~torch.isfinite(cov).all(-1).all(-1)
+    evals, evecs = torch.linalg.eigh(torch.where(bad[:, None, None], 0.0,
+                                                 cov))
+    scale = torch.sqrt(torch.clamp(evals, min=1e-12))
+    ctrl_w = torch.cat([cw0[:, None],
+                        cw0[:, None] + (evecs * scale[:, None, :])
+                        .transpose(-1, -2)], 1)                # (B, 4, 3)
+
+    ones4 = torch.ones((B, 1, 4), dtype=dt, device=dev)
+    M44 = torch.cat([ctrl_w.transpose(-1, -2), ones4], 1)     # (B, 4, 4)
+    rhs = torch.cat([points.transpose(-1, -2),
+                     torch.ones((B, 1, N), dtype=dt, device=dev)], 1)
+    alphas = lin.solve_or_nan(M44, rhs).transpose(-1, -2)     # (B, N, 4)
+
+    u, v = uv[..., 0], uv[..., 1]
+    aw = alphas * w[..., None]
+    zero = torch.zeros_like(aw)
+    # u-rows (a_j, 0, -u a_j), v-rows (0, a_j, -v a_j) per control j
+    Mu = torch.stack([aw, zero, -u[..., None] * aw], -1).reshape(B, N, 12)
+    Mv = torch.stack([zero, aw, -v[..., None] * aw], -1).reshape(B, N, 12)
+    M = torch.stack([Mu, Mv], 2).reshape(B, 2 * N, 12)
+    MtM = M.transpose(-1, -2) @ M
+    bad = bad | ~torch.isfinite(MtM).all(-1).all(-1)
+    _, V = torch.linalg.eigh(torch.where(bad[:, None, None], 0.0, MtM))
+    vset = V[..., :4].transpose(-1, -2).reshape(B, 4, 4, 3)   # (B, k, c, 3)
+
+    dw = torch.linalg.norm(_pair_diffs(ctrl_w), dim=-1)       # (B, 6)
+    dd = _pair_diffs(vset)                                    # (B, 4, 6, 3)
+    dv = torch.linalg.norm(dd, dim=-1)                        # (B, 4, 6)
+
+    def sq(k, l):
+        return (torch.sum(dd[:, k] * dd[:, k], -1),
+                2 * torch.sum(dd[:, k] * dd[:, l], -1),
+                torch.sum(dd[:, l] * dd[:, l], -1))
+
+    zb = torch.zeros(B, dtype=dt, device=dev)
+    b1 = torch.sum(dv[:, 0] * dw, -1) / torch.clamp(
+        torch.sum(dv[:, 0] * dv[:, 0], -1), min=1e-18)
+    betas_c1 = torch.stack([b1, zb, zb, zb], -1)
+
+    f11, f12, f22 = sq(0, 1)
+    sol2 = _lstsq(torch.stack([f11, f12, f22], -1), dw * dw)
+    b1s = torch.sqrt(torch.clamp(torch.abs(sol2[:, 0]), min=1e-18))
+    b2s = torch.sqrt(torch.clamp(torch.abs(sol2[:, 2]), min=1e-18)) * \
+        torch.sign(sol2[:, 1]) * torch.sign(sol2[:, 0] + 1e-30)
+    betas_c2 = torch.stack([b1s, b2s, zb, zb], -1)
+
+    _, f13b, _ = sq(0, 2)
+    _, f23b, _ = sq(1, 2)
+    sol3 = _lstsq(torch.stack([f11, f12, f22, f13b, f23b], -1), dw * dw)
+    b1t = torch.sqrt(torch.clamp(torch.abs(sol3[:, 0]), min=1e-18))
+    b2t = torch.sqrt(torch.clamp(torch.abs(sol3[:, 2]), min=1e-18)) * \
+        torch.sign(sol3[:, 1])
+    b3t = sol3[:, 3] / torch.clamp(b1t, min=1e-12)
+    betas_c3 = torch.stack([b1t, b2t, b3t, zb], -1)
+
+    eye4 = torch.eye(4, dtype=dt, device=dev)
+    cands = []
+    for betas in (betas_c1, betas_c2, betas_c3):
+        for _ in range(gn_iters):
+            # residual |sum_k b_k dd_k| - dw over the 6 pairs and its
+            # Jacobian (the norm's derivative, as jacfwd gives it)
+            diff = torch.einsum("bk,bkpd->bpd", betas, dd)    # (B, 6, 3)
+            dist = torch.linalg.norm(diff, dim=-1)
+            r = dist - dw
+            J = torch.einsum("bpd,bkpd->bpk", diff / dist[..., None], dd)
+            JtJ = J.transpose(-1, -2) @ J + 1e-9 * eye4
+            betas = betas - lin.solve_or_nan(
+                JtJ, (J.transpose(-1, -2) @ r[..., None]))[..., 0]
+        cands.append(betas)
+
+    Rs, ts, errs = [], [], []
+    for betas in cands:
+        ctrl_c = torch.einsum("bk,bkcd->bcd", betas, vset)
+        pts_c = alphas @ ctrl_c                               # (B, N, 3)
+        depth = torch.sum(pts_c[..., 2] * w, -1)
+        pts_c = pts_c * torch.where(depth < 0, -1.0, 1.0)[:, None, None]
+        _, R, t = ume.umeyama(points, pts_c, w=w, with_scale=False)
+        proj = points @ R.transpose(-1, -2) + t[:, None]
+        z = proj[..., 2]
+        zs = torch.where(torch.abs(z) < 1e-12, torch.full_like(z, 1e-12), z)
+        e = torch.sum((proj[..., :2] / zs[..., None] - uv) ** 2, -1)
+        errs.append(torch.sum(torch.where(mask, e, 0.0), -1))
+        Rs.append(R)
+        ts.append(t)
+    errs = torch.stack(errs, -1)                              # (B, 3)
+    errs = torch.where(bad[:, None], torch.nan, errs)
+    # first minimum, as jnp.argmin; a NaN error loses to any number
+    best = torch.argmin(torch.where(torch.isnan(errs), torch.inf, errs), -1)
+    ar = torch.arange(B, device=dev)
+    R = torch.stack(Rs, 1)[ar, best]
+    t = torch.stack(ts, 1)[ar, best]
+    return R, t, torch.isfinite(errs[ar, best])
 
 
 def pose_reproj_error(R, t, points, uv):

@@ -1,6 +1,7 @@
 """Batched projection and reprojection errors.
 
-Port of dagsfm_tpu/ops/projection.py for the pinhole camera models.
+Port of dagsfm_tpu/ops/projection.py; reprojection goes through every
+camera model (`cameras.img_from_cam`).
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 scene as dagsfm_tpu/scene/synthetic.py).
 
 Port of `SyntheticSceneSpec`, `generate`, `to_matching_problem`,
-`to_scene_arrays`, `pose_errors` and the pinhole branch of
-`render_images`.
+`to_scene_arrays`, `pose_errors` and `render_images` (through the
+scene's pinhole camera or any camera model).
 """
 
 from __future__ import annotations
@@ -209,16 +209,15 @@ def render_images(scene: SyntheticScene, sphere_radius: float | None = None,
                   background: float = 0.15, seed: int = 0,
                   camera=None, device=None) -> dict:
     """Ray-traced grayscale images of a procedurally textured sphere at
-    the scene origin, seen by the scene's pinhole cameras: a band-limited
+    the scene origin, seen from the scene's poses: a band-limited
     sum of random 3D cosine waves at the ray-sphere intersection, shaded
     by the surface normal. Returns {image_id (1-based): (H, W) float32
     numpy}. The texture is drawn from np.random.default_rng(seed) as the
     reference draws it; the rays are traced with torch in float64 on
-    `device` (the GPU unless "cpu" is asked for). Rendering through
-    another camera model (`camera=`) is not ported."""
-    if camera is not None:
-        raise NotImplementedError(
-            "render_images through a camera model is not ported")
+    `device` (the GPU unless "cpu" is asked for). With `camera=` (any
+    model, e.g. SIMPLE_RADIAL with k1 != 0) each pixel's ray is its
+    undistorted normalized coordinate, one `cam_from_img` over the pixel
+    grid: the image is the distorted view of the scene."""
     from dagsfm_tpu_torch import device as devmod
     dev = devmod.resolve(device)
     rng = np.random.default_rng(seed)
@@ -240,11 +239,18 @@ def render_images(scene: SyntheticScene, sphere_radius: float | None = None,
 
     T = (lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
                                    device=dev))
-    xs = (T(np.arange(W)) - cx) / fx
-    ys = (T(np.arange(H)) - cy) / fx
-    dirs_cam = torch.stack([xs[None, :].expand(H, W), ys[:, None].expand(H, W),
-                            torch.ones((H, W), dtype=torch.float64,
-                                       device=dev)], -1)
+    ones = torch.ones((H, W), dtype=torch.float64, device=dev)
+    if camera is not None:
+        pix = torch.stack([T(np.arange(W))[None, :].expand(H, W),
+                           T(np.arange(H))[:, None].expand(H, W)], -1)
+        xy = cm.cam_from_img(camera.model_id,
+                             T(camera.padded_params()), pix)
+        dirs_cam = torch.cat([xy, ones[..., None]], -1)
+    else:
+        xs = (T(np.arange(W)) - cx) / fx
+        ys = (T(np.arange(H)) - cy) / fx
+        dirs_cam = torch.stack([xs[None, :].expand(H, W),
+                                ys[:, None].expand(H, W), ones], -1)
     kvec_t, phase_t, amp_t = T(kvec), T(phase), T(amp)
     images = {}
     C_all = scene.centers()

@@ -1,18 +1,25 @@
 """Incremental SfM mapper: host control loop over batched device steps.
 
-Port of dagsfm_tpu/sfm/incremental_mapper.py for cameras with a focal
-prior (the focal-grid registration for cameras without one, and model
-snapshots, wait). Each geometric step is one batched call on the
-mapper's device — essential RANSAC for the initial pair, P3P-RANSAC plus
-Cauchy pose refinement for registration, two-view triangulation, dense
-bundle adjustment — and the host keeps the graph-shaped bookkeeping.
+Port of dagsfm_tpu/sfm/incremental_mapper.py (model snapshots wait).
+Each geometric step is one batched call on the mapper's device —
+essential RANSAC for the initial pair, P3P-RANSAC with its EPnP LO
+refit plus Cauchy pose refinement for registration (over a grid of
+focal lengths on the first registration of a camera without a focal
+prior), two-view triangulation, bundle adjustment that refines the
+intrinsics of cameras without a prior and every camera's distortion —
+and the host keeps the graph-shaped bookkeeping.
+
+Keypoints are normalised through the camera model (`cam_from_img`, the
+iterative undistortion) one camera at a time: every keypoint of every
+image of the camera in one call, kept until BA or the focal grid
+rewrites the camera. Newton's steps act on each point alone, so this
+gives the bits of the reference's per-call normalisation.
 
 The reference pads every device call to power-of-two buckets to bound
 its jit compiles; PyTorch runs eagerly, so the port passes exact sizes.
 RANSAC samples come from a `torch.Generator` seeded with
 `MapperOptions.seed` (the reference's jax.random stream cannot be
-replayed), and the P3P RANSAC has no EPnP LO refit until EPnP is
-ported: the pose refinement that follows it refits on the inliers.
+replayed).
 """
 
 from __future__ import annotations
@@ -85,10 +92,6 @@ class IncrementalMapper:
         self.graph = graph
         self.rec = Reconstruction()
         for c in cameras.values():
-            if not c.prior_focal:
-                raise NotImplementedError(
-                    "cameras without a focal prior (focal-grid "
-                    "registration) are not ported")
             self.rec.add_camera(c)
         for im in images.values():
             self.rec.add_image(dataclasses.replace(
@@ -102,6 +105,10 @@ class IncrementalMapper:
         self._failed_regs: dict = {}
         self._merge_candidates: set = set()
         self._retri_trials: dict = {}
+        self._cam_snapshot: dict | None = None
+        self._norm_cache: dict = {}   # camera_id -> (params, {image: uv})
+        # the focal-grid factor picked at each camera's first registration
+        self.focal_grid_factors: list = []
 
     # ------------------------------------------------------------ utils
     def _t(self, a, dtype=devmod.DTYPE):
@@ -111,9 +118,28 @@ class IncrementalMapper:
         return self.rec.cameras[self.rec.images[image_id].camera_id]
 
     def _normalize(self, image_id: int, xys: np.ndarray) -> np.ndarray:
-        """Pixels -> normalized camera coordinates (pinhole: closed form)."""
-        K = self._cam_of(image_id).calibration_matrix()
-        return (xys - K[:2, 2]) / np.array([K[0, 0], K[1, 1]])
+        """Pixels -> normalized camera coordinates through the image's
+        camera model (iterative undistortion)."""
+        cam = self._cam_of(image_id)
+        return cm.cam_from_img(cam.model_id, self._t(cam.padded_params()),
+                               self._t(xys)).cpu().numpy()
+
+    def _normalized(self, image_id: int, kp) -> np.ndarray:
+        """Normalized coordinates of keypoints `kp` of an image. A miss
+        normalises every keypoint of every image of the camera at once;
+        the result stands until the camera's params change."""
+        cam = self._cam_of(image_id)
+        hit = self._norm_cache.get(cam.camera_id)
+        if hit is None or hit[0] != cam.params:
+            ids = [i for i, im in self.rec.images.items()
+                   if im.camera_id == cam.camera_id]
+            sizes = [len(self.rec.images[i].xys) for i in ids]
+            uv = self._normalize(image_id, np.concatenate(
+                [self.rec.images[i].xys for i in ids]).reshape(-1, 2))
+            parts = np.split(uv, np.cumsum(sizes)[:-1])
+            hit = (cam.params, dict(zip(ids, parts)))
+            self._norm_cache[cam.camera_id] = hit
+        return hit[1][image_id][kp]
 
     def _focal(self, image_id: int) -> float:
         return self._cam_of(image_id).focal()
@@ -137,8 +163,8 @@ class IncrementalMapper:
             min_matches = max(8, self.opts.init_min_num_inliers // 4)
         if len(m) < min_matches:
             return None
-        x1 = self._t(self._normalize(i, self.rec.images[i].xys[m[:, 0]]))[None]
-        x2 = self._t(self._normalize(j, self.rec.images[j].xys[m[:, 1]]))[None]
+        x1 = self._t(self._normalized(i, m[:, 0]))[None]
+        x2 = self._t(self._normalized(j, m[:, 1]))[None]
         mask = torch.ones((1, len(m)), dtype=torch.bool, device=self.device)
         thr = (self.opts.abs_pose_max_error_px / 3.0 / self._focal(i)) ** 2
         idx = rnsc.sample_indices(self._gen, mask,
@@ -239,7 +265,26 @@ class IncrementalMapper:
         kp_idx = np.array(kp_idx)
         pids = np.array(pids)
         X = np.stack([self.rec.points3D[p].xyz for p in pids])
-        uv = self._normalize(image_id, self.rec.images[image_id].xys[kp_idx])
+        cam = self._cam_of(image_id)
+        # the focal grid runs on a camera's first registration only: once
+        # an image of the camera is registered, BA owns its focal
+        cam_in_use = any(self.rec.images[j].camera_id == cam.camera_id
+                         for j in self.rec.reg_image_ids)
+        if not cam.prior_focal and not cam_in_use:
+            K = cam.calibration_matrix()
+            centered = self.rec.images[image_id].xys[kp_idx] - K[:2, 2]
+            idx = rnsc.sample_indices(
+                self._gen, torch.ones((1, len(X)), dtype=torch.bool,
+                                      device=self.device),
+                self.opts.num_ransac_hypotheses, 3)
+            _, _, num, factor = _ransac_p3p_focal(
+                self._t(X), self._t(centered), cam.focal(),
+                self.opts.abs_pose_max_error_px, idx)
+            if int(num) >= self.opts.abs_pose_min_num_inliers:
+                self.rec.cameras[cam.camera_id] = cm.scale_focal(
+                    cam, float(factor))
+                self.focal_grid_factors.append(float(factor))
+        uv = self._normalized(image_id, kp_idx)
         thr = (self.opts.abs_pose_max_error_px / self._focal(image_id)) ** 2
         q2, t2, inliers, n_inl = (a.cpu().numpy() for a in _register_pose(
             self._gen, self._t(X), self._t(uv), thr,
@@ -306,14 +351,13 @@ class IncrementalMapper:
             return 0
         cand = np.array(cand)
         n = len(cand)
-        x1 = self._normalize(image_id, im_i.xys[cand[:, 1]])
+        x1 = self._normalized(image_id, cand[:, 1])
         q2 = np.stack([self.rec.images[int(j)].qvec for j in cand[:, 0]])
         t2 = np.stack([self.rec.images[int(j)].tvec for j in cand[:, 0]])
         x2 = np.zeros((n, 2))
         for j in np.unique(cand[:, 0]):
             rows = np.nonzero(cand[:, 0] == j)[0]
-            x2[rows] = self._normalize(
-                int(j), self.rec.images[int(j)].xys[cand[rows, 2]])
+            x2[rows] = self._normalized(int(j), cand[rows, 2])
         X, good = self._triangulate(
             np.broadcast_to(im_i.qvec, (n, 4)),
             np.broadcast_to(im_i.tvec, (n, 3)), q2, t2, x1, x2, image_id)
@@ -338,7 +382,7 @@ class IncrementalMapper:
         Xc = rops.quat_to_rotmat_np(im.qvec) @ xyz + im.tvec
         if Xc[2] < 1e-4:
             return False
-        uv = self._normalize(image_id, im.xys[kp][None])[0]
+        uv = self._normalized(image_id, kp)
         err = np.linalg.norm(Xc[:2] / Xc[2] - uv) * self._focal(image_id)
         if max_error_px is None:
             max_error_px = self.opts.tri_max_reproj_error_px
@@ -462,8 +506,8 @@ class IncrementalMapper:
             np.broadcast_to(im_i.tvec, (n, 3)),
             np.broadcast_to(im_j.qvec, (n, 4)),
             np.broadcast_to(im_j.tvec, (n, 3)),
-            self._normalize(i, im_i.xys[cand[:, 0]]),
-            self._normalize(j, im_j.xys[cand[:, 1]]), i)
+            self._normalized(i, cand[:, 0]),
+            self._normalized(j, cand[:, 1]), i)
         created = 0
         for k in np.nonzero(good)[0]:
             ki, kj = int(cand[k, 0]), int(cand[k, 1])
@@ -497,13 +541,22 @@ class IncrementalMapper:
             self.opts.ba_refine_principal, self.opts.ba_refine_extra,
             eligible=[not self.rec.cameras[c].prior_focal for c in cam_ids],
             eligible_extra=np.ones(len(cam_ids), bool))
-        if cam_refine.any():
-            raise NotImplementedError("intrinsics refinement is not ported")
+        refine_on = bool(cam_refine.any())
         prob = ba.make_problem(arrays, max_track_len=self.opts.max_track_len,
-                               const_image=const)
-        prob, _stats = ba.solve(prob, ba.BAOptions(loss="cauchy",
-                                                   loss_scale=1.0),
-                                max_iters=max_iterations)
+                               const_image=const,
+                               cam_refine=cam_refine if refine_on else None)
+        opts = ba.BAOptions(
+            loss="cauchy", loss_scale=1.0,
+            refine_focal=refine_on and self.opts.ba_refine_focal,
+            refine_principal=refine_on and self.opts.ba_refine_principal,
+            refine_extra=refine_on and self.opts.ba_refine_extra)
+        prob, _stats = ba.solve(prob, opts, max_iters=max_iterations)
+        if refine_on:
+            newp = prob.cam_params.cpu().numpy()
+            for k, c in enumerate(cam_ids):
+                cam = self.rec.cameras[c]
+                self.rec.cameras[c] = cam._replace(params=tuple(
+                    float(v) for v in newp[k, :len(cam.params)]))
         q = prob.image_qvec.cpu().numpy()
         t = prob.image_tvec.cpu().numpy()
         X = prob.points.cpu().numpy()
@@ -600,8 +653,7 @@ class IncrementalMapper:
         for k in np.unique(oi):
             rows = np.nonzero(oi == k)[0]
             img_id = img_ids[k]
-            uv_obs[rows] = self._normalize(
-                img_id, self.rec.images[img_id].xys[okp[rows]])
+            uv_obs[rows] = self._normalized(img_id, okp[rows])
         z = Xc[:, 2]
         behind = z < 1e-4
         zs = np.where(np.abs(z) < 1e-12, 1e-12, z)
@@ -661,12 +713,16 @@ class IncrementalMapper:
 
     # ------------------------------------------------- main loop
     def _reset_model(self) -> None:
-        """Tear the model down for an init-pair retry (failure counters
-        cleared; intrinsics are never refined here, so nothing to restore)."""
+        """Tear the model down for an init-pair retry: failure counters
+        cleared and the cameras put back as they were before the first
+        trial (a failed trial's BA refined the shared intrinsics)."""
         for pid in list(self.rec.points3D):
             self.rec.delete_point3D(pid)
         for i in list(self.rec.reg_image_ids):
             self.rec.deregister_image(i)
+        if self._cam_snapshot is not None:
+            self.rec.cameras.clear()
+            self.rec.cameras.update(self._cam_snapshot)
         self._failed_regs = {}
         self._num_reg_at_last_global_ba = 0
         self._num_pts_at_last_global_ba = 0
@@ -676,6 +732,7 @@ class IncrementalMapper:
         that never grows past its two images is torn down and the next
         initial pair is tried."""
         last_pair = None
+        self._cam_snapshot = dict(self.rec.cameras)
         pair = self.find_initial_pair()
         for trial in range(self.opts.init_num_trials):
             if pair is None:
@@ -750,22 +807,56 @@ class IncrementalMapper:
 # batched device steps
 # ---------------------------------------------------------------------------
 
+def _p3p_solver(Xs, uvs):
+    Rs, ts, ok = ap.p3p(Xs, uvs)
+    return torch.cat([Rs, ts[..., None]], dim=-1), ok
+
+
+def _pose_residual(M, Xd, uvd):
+    return ap.pose_reproj_error(M[..., :3], M[..., 3], Xd[:, None],
+                                uvd[:, None])
+
+
+def _epnp_refit(Xd, uvd, inl):
+    R, t, _ = ap.epnp(Xd, uvd, mask=inl)
+    return torch.cat([R, t[..., None]], dim=-1)
+
+
+def ransac_p3p(X, uv, thr, sample_idx):
+    """P3P LO-RANSAC with the EPnP refit on the inliers over a batch:
+    X (B, N, 3), uv (B, N, 2), thr scalar or (B,), sample_idx (B, H, 3)."""
+    mask = torch.ones(uv.shape[:2], dtype=torch.bool, device=X.device)
+    return rnsc.ransac(_p3p_solver, _pose_residual, (X, uv), mask,
+                       sample_idx, thr, refit=_epnp_refit)
+
+
+def _ransac_p3p_focal(X, centered, focal0: float, thr_px: float,
+                      sample_idx, num_samples: int = 15):
+    """P3P-RANSAC over a grid of focal lengths (the reference's
+    estimate_focal_length): 15 log-spaced factors of focal0 from 0.2 to
+    5, one batch row each, all on the same (1, H, 3) sample set; the
+    first factor with the most inliers wins. X (N, 3), centered (N, 2)
+    pixels minus the principal point. Returns (model (3, 4), inliers (N,),
+    num_inliers, factor)."""
+    factors = torch.as_tensor(np.exp(np.linspace(np.log(0.2), np.log(5.0),
+                                                 num_samples)),
+                              dtype=X.dtype, device=X.device)
+    f = focal0 * factors
+    uv = centered[None] / f[:, None, None]
+    res = ransac_p3p(X[None].expand(num_samples, -1, -1), uv,
+                     (thr_px / f) ** 2,
+                     sample_idx.expand(num_samples, -1, -1))
+    best = torch.argmax(res.num_inliers)
+    return (res.model[best], res.inliers[best], res.num_inliers[best],
+            factors[best])
+
+
 def _register_pose(gen, X, uv, thr, num_hyps):
-    """P3P-RANSAC + Cauchy pose refinement on the inliers.
-    Returns (qvec, tvec, inliers, num_inliers)."""
-    Xb, uvb = X[None], uv[None]
-    mask = torch.ones(uvb.shape[:2], dtype=torch.bool, device=X.device)
-
-    def solver(Xs, uvs):
-        Rs, ts, ok = ap.p3p(Xs, uvs)
-        return torch.cat([Rs, ts[..., None]], dim=-1), ok
-
-    def residual(M, Xd, uvd):
-        return ap.pose_reproj_error(M[..., :3], M[..., 3], Xd[:, None],
-                                    uvd[:, None])
-
-    res = rnsc.ransac(solver, residual, (Xb, uvb), mask,
-                      rnsc.sample_indices(gen, mask, num_hyps, 3), thr)
+    """P3P LO-RANSAC (EPnP refit) + Cauchy pose refinement on the
+    inliers. Returns (qvec, tvec, inliers, num_inliers)."""
+    mask = torch.ones((1, X.shape[0]), dtype=torch.bool, device=X.device)
+    res = ransac_p3p(X[None], uv[None], thr,
+                     rnsc.sample_indices(gen, mask, num_hyps, 3))
     Rt = res.model[0]
     R2, t2 = ap.refine_pose(Rt[:, :3], Rt[:, 3], X, uv, res.inliers[0])
     return rops.rotmat_to_quat(R2), t2, res.inliers[0], res.num_inliers[0]

@@ -13,7 +13,6 @@ import torch
 from dagsfm_tpu.scene import synthetic as j_syn
 from dagsfm_tpu.sfm import bundle_adjustment as j_ba
 from dagsfm_tpu_torch import interop
-from dagsfm_tpu_torch.scene import cameras as t_cm
 from dagsfm_tpu_torch.sfm import bundle_adjustment as t_ba
 
 torch.set_num_threads(1)
@@ -118,18 +117,54 @@ def test_fixed_budget_runs_every_iteration():
     assert ts.final_cost == pytest.approx(float(js.final_cost), rel=1e-8)
 
 
-def test_unported_regimes_raise():
-    arrays = interop.scene_arrays(_arrays()._asdict(), device="cpu")
-    tp = t_ba.make_problem(arrays)
-    with pytest.raises(NotImplementedError):
-        t_ba.solve(tp, t_ba.BAOptions(refine_focal=True))
-    with pytest.raises(NotImplementedError):
-        t_ba.solve(tp, t_ba.BAOptions(solver="iterative"))
-    refine = t_cm.intrinsics_refine_mask(
-        arrays.cam_model_id.numpy(), True, False, False)
-    with pytest.raises(NotImplementedError):
-        t_ba.solve(t_ba.make_problem(arrays, cam_refine=refine))
+@pytest.mark.parametrize("chunk", [4, 512])
+def test_segment_sums_of_long_runs(chunk, monkeypatch):
+    """Every run is summed in chunks of at most SEGMENT_CHUNK rows and
+    then the chunk sums (runs up to SEGMENT_CHUNK long in one chunk):
+    the per-target sums stay right (empty targets 0), and a solve of
+    pinhole cameras is unchanged by the chunk length."""
+    monkeypatch.setattr(t_ba, "SEGMENT_CHUNK", chunk)
+    rng = np.random.default_rng(0)
+    keys = rng.integers(0, 7, 1000)
+    keys[keys == 3] = 5                                  # an empty target
+    x = rng.normal(size=(1000, 2, 3))
+    seg = t_ba.segments(keys, 8, "cpu")
+    lengths = np.bincount(keys, minlength=8)
+    assert seg.chunk_counts.tolist() == np.maximum(
+        -(-lengths // chunk), 1).tolist()
+    assert int(seg.chunks.max()) == min(chunk, lengths.max())
+    assert int(seg.chunks.sum()) == 1000
+    want = np.stack([x[keys == k].sum(0) for k in range(8)])
+    np.testing.assert_allclose(t_ba._segment_sum(torch.as_tensor(x), seg)
+                               .numpy(), want, rtol=1e-12, atol=1e-12)
+    arrays = interop.scene_arrays(_arrays(seed=5)._asdict(), device="cpu")
+    out, st = t_ba.solve(t_ba.make_problem(arrays), t_ba.BAOptions(
+        max_iterations=3))
+    monkeypatch.setattr(t_ba, "SEGMENT_CHUNK", 256)
+    out2, st2 = t_ba.solve(t_ba.make_problem(arrays), t_ba.BAOptions(
+        max_iterations=3))
+    assert st.final_cost == pytest.approx(st2.final_cost, rel=1e-12)
     assert t_ba.all_pinhole(arrays)
+
+
+def test_segment_sums_tool_times_both_ways():
+    """tools/segment_sums.py on tiny problems (on the CPU): every problem
+    solved in chunks and in one pass, the two costs equal, each grouping
+    of the solve timed both ways; SEGMENT_CHUNK is restored."""
+    from dagsfm_tpu_torch.tools import segment_sums
+    before = t_ba.SEGMENT_CHUNK
+    res = segment_sums.run(torch.device("cpu"), lm=1, dense_images=6,
+                           dense_points=150, ba_cameras=12, ba_points=300)
+    assert t_ba.SEGMENT_CHUNK == before
+    assert set(res) == {"dense joint", "iterative joint", "iterative plain"}
+    for r in res.values():
+        assert r["lm_iterations"] == 1 and np.isfinite(r["final_cost"])
+        for mode in ("chunked", "one pass"):
+            assert len(r["s_per_lm_iteration"][mode]) == 2
+            assert {"by_image", "by_point"} <= set(r["segment_sum_ms"][mode])
+    assert res["dense joint"]["segment_sum_ms"]["chunked"]["pairs_gg"][
+        "longest_run"] == res["dense joint"]["segment_sum_ms"]["chunked"][
+            "pairs_gg"]["rows"]                       # one shared camera
 
 
 def test_failed_factorisations_give_nan_as_the_reference():

@@ -5,8 +5,12 @@ mapping and SIFT repeat bit for bit on the card. K1, K2 and K4 multiply
 on the bf16 tensor cores and are held to the borderline rule (scores
 within EPS; an index may differ only where the plain scores put it
 within 2 EPS of a tie or a threshold); K3 (one ordered FMA chain per
-score) and match_one_pair equal their plain versions to the bit. Every
-test here needs a CUDA card and skips without one.
+score) and match_one_pair equal their plain versions to the bit. Also:
+the camera models' undistortion on the card against the CPU, and that
+bundle adjustment with intrinsics (dense joint and iterative PCG), a
+mapping from a blind distorted camera and one through the focal grid
+(a blind camera per image) repeat bit for bit. Every test
+here needs a CUDA card and skips without one.
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -18,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import plant_features, planted_pairs
+from chip_smoke import distort_keypoints, plant_features, planted_pairs
 from dagsfm_tpu_torch.features import matching as t_fm
 from dagsfm_tpu_torch.ops import matcher_kernel as mk
 from dagsfm_tpu_torch.ops import top2_matcher as tm
@@ -290,3 +294,134 @@ def test_sift_repeats_bit_for_bit_on_the_card(cuda):
     assert int(a.mask.sum()) > 100
     for name, x in a._asdict().items():
         assert torch.equal(x, getattr(b, name)), name
+
+
+def test_cam_from_img_on_the_card_equals_the_cpu(cuda):
+    """The 25 Newton steps of every model's undistortion on the card
+    give the CPU's coordinates to 1e-12."""
+    from dagsfm_tpu_torch.scene import cameras as t_cm
+    rng = np.random.default_rng(0)
+    xy = rng.uniform([40, 30], [600, 450], (4096, 2))
+    for mid in range(11):
+        single = mid in t_cm._SINGLE_FOCAL
+        n = t_cm.CAMERA_MODEL_NUM_PARAMS[mid]
+        p = np.zeros(12)
+        base = [500.0, 320.0, 240.0] if single else [500.0, 520.0, 320.0,
+                                                      240.0]
+        p[:len(base)] = base
+        p[len(base):n] = rng.normal(0.0, 0.05, n - len(base))
+        if mid == t_cm.FOV:
+            p[4] = 0.9
+        cpu = t_cm.cam_from_img(mid, torch.as_tensor(p), torch.as_tensor(xy))
+        card = t_cm.cam_from_img(mid, torch.as_tensor(p, device=cuda),
+                                 torch.as_tensor(xy, device=cuda))
+        np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=0,
+                                   atol=1e-12, err_msg=str(mid))
+
+
+def _perturbed_radial_problem(device):
+    from dagsfm_tpu_torch.scene import cameras as t_cm
+    from dagsfm_tpu_torch.sfm import bundle_adjustment as t_ba
+    sc = t_syn.generate(t_syn.SyntheticSceneSpec(
+        num_cameras=30, num_points=1500, pixel_noise=0.3, seed=5,
+        camera_model="SIMPLE_RADIAL"))
+    arrays = t_syn.to_scene_arrays(sc, device)
+    cp = arrays.cam_params.clone()
+    cp[0, 0] *= 1.1
+    cp[0, 3] = 0.05
+    arrays = arrays._replace(cam_params=cp)
+    const = np.zeros(30, bool)
+    const[:2] = True
+    return t_ba.make_problem(arrays, const_image=const,
+                             cam_refine=t_cm.intrinsics_refine_mask(
+                                 [t_cm.SIMPLE_RADIAL], True, False, True))
+
+
+@pytest.mark.parametrize("solver", ["dense", "iterative"])
+def test_joint_ba_repeats_bit_for_bit_on_the_card(cuda, solver):
+    """Two solves of one problem give the same bits: the joint system's
+    pose-intrinsics and intrinsics-intrinsics blocks are segment sums in
+    a fixed order, and so are the PCG's dot products. The card agrees
+    with the CPU to the rounding of the sums' order."""
+    from dagsfm_tpu_torch.sfm import bundle_adjustment as t_ba
+    opts = t_ba.BAOptions(max_iterations=10, loss="cauchy", refine_focal=True,
+                          refine_extra=True, solver=solver)
+    runs = [t_ba.solve(_perturbed_radial_problem(cuda), opts)
+            for _ in range(2)]
+    (a, sa), (b, sb) = runs
+    assert sa == sb
+    for name in ("image_qvec", "image_tvec", "points", "cam_params"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    cpu, sc = t_ba.solve(_perturbed_radial_problem(torch.device("cpu")),
+                         opts)
+    assert sc.final_cost == pytest.approx(sa.final_cost, rel=1e-6)
+    np.testing.assert_allclose(a.cam_params.cpu().numpy(),
+                               cpu.cam_params.numpy(), rtol=1e-7)
+
+
+def _same_bits(a, b):
+    assert a.reg_image_ids == b.reg_image_ids
+    for c in a.cameras:
+        assert a.cameras[c].params == b.cameras[c].params, c
+    for i in a.reg_image_ids:
+        np.testing.assert_array_equal(a.images[i].qvec, b.images[i].qvec)
+        np.testing.assert_array_equal(a.images[i].tvec, b.images[i].tvec)
+    assert a.points3D.keys() == b.points3D.keys()
+    for p in a.points3D:
+        np.testing.assert_array_equal(a.points3D[p].xyz, b.points3D[p].xyz)
+
+
+def _distorted_mapping(device, num_cameras, one_camera_each):
+    """to_matching_problem's keypoints seen through SIMPLE_RADIAL (f 900,
+    k1 = -0.1, 0.3 px noise), mapped from blind SIMPLE_RADIAL cameras:
+    one shared, or one per image. Returns (reconstruction, mapper)."""
+    from dagsfm_tpu_torch.scene import cameras as t_cm
+    from dagsfm_tpu_torch.sfm import incremental_mapper as t_im
+    sc = t_syn.generate(t_syn.SyntheticSceneSpec(
+        num_cameras=num_cameras, num_points=60 * num_cameras, seed=3,
+        image_width=1024, image_height=768, focal=900.0))
+    truth = t_cm.Camera(1, t_cm.SIMPLE_RADIAL, 1024, 768,
+                        (900.0, 512.0, 384.0, -0.1))
+    _, images, graph = t_syn.to_matching_problem(sc)
+    images = distort_keypoints(sc, images, truth, noise=0.3)
+    if one_camera_each:
+        for i, im in images.items():
+            im.camera_id = i
+    cams = {c: t_cm.make_simple_camera(c, 1024, 768, model="SIMPLE_RADIAL")
+            for c in {im.camera_id for im in images.values()}}
+    mapper = t_im.IncrementalMapper(cams, images, graph,
+                                    t_im.MapperOptions(seed=0), device=device)
+    return mapper.reconstruct(), mapper
+
+
+def test_distorted_mapping_repeats_bit_for_bit_on_the_card(cuda):
+    """Two mappings of keypoints seen through SIMPLE_RADIAL (k1 = -0.1),
+    from one blind camera, give the same bits, the refined camera too."""
+    (a, _), (b, _) = (_distorted_mapping(cuda, 12, False) for _ in range(2))
+    assert a.num_reg_images() == 12
+    assert abs(a.cameras[1].params[0] - 900.0) < 9.0
+    assert a.cameras[1].params[3] < -0.05
+    _same_bits(a, b)
+
+
+def test_focal_grid_repeats_bit_for_bit_on_the_card(cuda):
+    """One blind camera per image: on the card the focal grid (15
+    factors of one batched P3P RANSAC with the EPnP refit) runs on each
+    camera's first registration and picks grid points, the nearest to
+    900 / 1228.8 most often, as tests/test_torch_distorted_mapping.py
+    asks on the CPU; two mappings give the same picks and the same
+    bits. The card draws other RANSAC samples than the CPU, so an image
+    whose registration fails after its grid run goes through the grid
+    again when it is retried, as in the reference."""
+    n = 8
+    (a, ma), (b, mb) = (_distorted_mapping(cuda, n, True) for _ in range(2))
+    assert a.num_reg_images() == n
+    picks = ma.focal_grid_factors
+    assert picks == mb.focal_grid_factors and len(picks) >= n - 2, picks
+    assert len(picks) - (n - 2) <= sum(ma._failed_regs.values()), picks
+    grid = np.exp(np.linspace(np.log(0.2), np.log(5.0), 15))
+    assert all(np.isclose(grid, p, rtol=1e-12, atol=0).any() for p in picks)
+    assert max(picks, key=picks.count) == grid[6], picks
+    for c in a.cameras.values():
+        assert abs(c.params[0] - 900.0) < 18.0 and c.params[3] < 0, c
+    _same_bits(a, b)

@@ -1,18 +1,26 @@
 """Port geometry vs the JAX reference on the same numpy inputs (float64):
-rotations, cameras, projection, triangulation, polynomials, P3P, Umeyama
-and the device rule of the port's entry points."""
+rotations, cameras, projection, triangulation, polynomials, P3P, EPnP,
+the P3P LO-RANSAC with its EPnP refit and its focal grid, Umeyama, the
+mapper's normalisation through a distorted camera and the device rule
+of the port's entry points. Every camera model has its own cases in
+tests/test_torch_cameras.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import jax
+
 from dagsfm_tpu.ops import absolute_pose as j_ap
+from dagsfm_tpu.ops import ransac as j_rnsc
 from dagsfm_tpu.ops import polynomials as j_poly
 from dagsfm_tpu.ops import projection as j_proj
 from dagsfm_tpu.ops import rotations as j_rot
 from dagsfm_tpu.ops import triangulation as j_tri
 from dagsfm_tpu.ops import umeyama as j_ume
 from dagsfm_tpu.scene import cameras as j_cm
+from dagsfm_tpu.scene import synthetic as j_syn
+from dagsfm_tpu.sfm import incremental_mapper as j_im
 from dagsfm_tpu_torch import device as devmod
 from dagsfm_tpu_torch.ops import absolute_pose as t_ap
 from dagsfm_tpu_torch.ops import polynomials as t_poly
@@ -21,6 +29,8 @@ from dagsfm_tpu_torch.ops import rotations as t_rot
 from dagsfm_tpu_torch.ops import triangulation as t_tri
 from dagsfm_tpu_torch.ops import umeyama as t_ume
 from dagsfm_tpu_torch.scene import cameras as t_cm
+from dagsfm_tpu_torch.scene import synthetic as t_syn
+from dagsfm_tpu_torch.sfm import incremental_mapper as t_im
 
 torch.set_num_threads(1)
 RTOL = 1e-10
@@ -110,13 +120,6 @@ def test_cameras(model):
                                         eligible=[True, False, True]),
             j_cm.intrinsics_refine_mask(mids, *flags,
                                         eligible=[True, False, True]))
-
-
-def test_unported_camera_model_raises():
-    with pytest.raises(NotImplementedError):
-        t_cm.make_simple_camera(1, 10, 10, 5.0, model="SIMPLE_RADIAL")
-    with pytest.raises(NotImplementedError):
-        t_cm.img_from_cam(t_cm.OPENCV, torch.zeros(12), torch.ones(3))
 
 
 def test_projection_and_angles():
@@ -239,6 +242,124 @@ def test_p3p_and_umeyama():
         close(a, b)
 
 
+def _pnp_data(seed, n=40, outliers=0.0, noise=0.0, f=1.0):
+    """A pose, generic non-planar points in front of it, their
+    normalized image coordinates / f, and the outlier flags."""
+    rng = np.random.default_rng(seed)
+    R = np.asarray(j_rot.quat_to_rotmat(jnp.asarray(_quats(rng, 1)[0])))
+    t = rng.normal(size=3)
+    X = rng.normal(size=(n, 3)) * [1.0, 1.5, 0.8] + R.T @ (
+        np.array([0, 0, 6.0]) - t)
+    Xc = X @ R.T + t
+    uv = Xc[:, :2] / Xc[:, 2:] + rng.normal(size=(n, 2)) * noise
+    bad = rng.random(n) < outliers
+    uv[bad] = rng.uniform(-0.4, 0.4, (bad.sum(), 2))
+    return R, t, X, uv / f, bad
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_epnp(masked):
+    """Batched EPnP against the reference one problem at a time; masked
+    rows hold outliers. eigh's signs differ between the libraries, so
+    R and t are compared, not the eigenvectors."""
+    Xs, uvs, ms, Rs = [], [], [], []
+    for b in range(3):
+        R, t, X, uv, bad = _pnp_data(20 + b, outliers=0.3 if masked else 0)
+        Xs.append(X)
+        uvs.append(uv)
+        ms.append(~bad)
+        Rs.append((R, t))
+    Xs, uvs, ms = map(np.stack, (Xs, uvs, ms))
+    Rt, tt, ok = t_ap.epnp(T(Xs), T(uvs),
+                           torch.as_tensor(ms) if masked else None)
+    for b in range(3):
+        Rj, tj, okj = j_ap.epnp(jnp.asarray(Xs[b]), jnp.asarray(uvs[b]),
+                                mask=jnp.asarray(ms[b]) if masked else None)
+        assert bool(ok[b]) == bool(okj)
+        close(Rt[b], Rj, rtol=0, atol=1e-8)
+        close(tt[b], tj, rtol=0, atol=1e-8)
+        close(Rt[b], Rs[b][0], rtol=0, atol=1e-8)
+
+
+def test_ransac_p3p_with_epnp_refit_and_reference_samples():
+    """The mapper's P3P LO-RANSAC (EPnP refit on the inliers) on the
+    reference's own samples: the same inliers and model."""
+    _, _, X, uv, bad = _pnp_data(31, n=80, outliers=0.25, noise=1e-3)
+    mask = np.ones(80, bool)
+    key, H, thr = jax.random.PRNGKey(3), 64, (12.0 / 1000) ** 2
+    idx = np.asarray(j_rnsc._sample_indices(key, H, 3, 80,
+                                            jnp.asarray(mask)))
+    ref = j_im._ransac_p3p(key, jnp.asarray(X), jnp.asarray(uv),
+                           jnp.asarray(mask), thr, H)
+    res = t_im.ransac_p3p(T(X)[None], T(uv)[None], thr,
+                          torch.as_tensor(idx)[None])
+    np.testing.assert_array_equal(res.inliers[0].numpy(),
+                                  np.asarray(ref.inliers))
+    assert not res.inliers[0].numpy()[bad].any()
+    # the EPnP refit of noisy inliers depends on its control points, and
+    # those on eigh's signs: the poses agree to the noise
+    close(res.model[0], ref.model, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("seed,true_index", [(40, 5), (41, 9)])
+def test_ransac_p3p_focal_with_reference_samples(seed, true_index):
+    """The focal grid on one shared sample set: the same factor wins,
+    with the same inliers and model. Keypoints are exact at the true
+    focal, which lies on the grid."""
+    factors = np.exp(np.linspace(np.log(0.2), np.log(5.0), 15))
+    f_true = 900.0
+    focal0 = f_true / factors[true_index]
+    _, _, X, uv, bad = _pnp_data(seed, n=60, outliers=0.2)
+    centered = uv * f_true
+    mask = np.ones(60, bool)
+    key, H = jax.random.PRNGKey(seed), 64
+    idx = np.asarray(j_rnsc._sample_indices(key, H, 3, 60,
+                                            jnp.asarray(mask)))
+    jm, ji, jn, jf = j_im._ransac_p3p_focal(
+        key, jnp.asarray(X), jnp.asarray(centered), jnp.asarray(mask),
+        focal0, 12.0, H)
+    tm, ti, tn, tf = t_im._ransac_p3p_focal(
+        T(X), T(centered), focal0, 12.0, torch.as_tensor(idx)[None])
+    assert float(tf) == pytest.approx(float(jf), rel=1e-12)
+    assert float(tf) == pytest.approx(factors[true_index], rel=1e-12)
+    assert int(tn) == int(jn) == int((~bad).sum())
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    close(tm, jm, rtol=0, atol=1e-8)
+
+
+def test_mapper_normalize_through_a_distorted_camera():
+    """Both mappers' keypoint normalisation on a blind SIMPLE_RADIAL
+    camera (k1 = -0.1): the port's per-call `_normalize` and its cached
+    all-keypoints `_normalized` give the reference's coordinates."""
+    spec = dict(num_cameras=4, num_points=300, seed=2, image_width=1024,
+                image_height=768, focal=900.0)
+    jcams, jimgs, jgraph = j_syn.to_matching_problem(
+        j_syn.generate(j_syn.SyntheticSceneSpec(**spec)))
+    tcams, timgs, tgraph = t_syn.to_matching_problem(
+        t_syn.generate(t_syn.SyntheticSceneSpec(**spec)))
+    params = (1228.8, 512.0, 384.0, -0.1)
+    jm = j_im.IncrementalMapper({1: j_cm.Camera(1, 2, 1024, 768, params,
+                                                prior_focal=False)},
+                                jimgs, jgraph)
+    tm = t_im.IncrementalMapper({1: t_cm.Camera(1, 2, 1024, 768, params,
+                                                prior_focal=False)},
+                                timgs, tgraph, device="cpu")
+    for i in (1, 3):
+        xys = np.asarray(tm.rec.images[i].xys)
+        ref = np.asarray(jm._normalize(i, np.asarray(jm.rec.images[i].xys)))
+        close(tm._normalize(i, xys), ref, rtol=0, atol=1e-10)
+        close(tm._normalized(i, np.arange(len(xys))), ref, rtol=0,
+              atol=1e-10)
+    # the cache follows the camera: a new k1 gives new coordinates
+    before = tm._normalized(2, np.arange(5))
+    tm.rec.cameras[1] = tm.rec.cameras[1]._replace(
+        params=(1228.8, 512.0, 384.0, -0.05))
+    after = tm._normalized(2, np.arange(5))
+    close(after, tm._normalize(2, tm.rec.images[2].xys[:5]), rtol=0,
+          atol=0)
+    assert np.abs(after - before).max() > 1e-4
+
+
 def test_refine_pose_matches_reference():
     rng = np.random.default_rng(8)
     R = np.asarray(j_rot.quat_to_rotmat(jnp.asarray(_quats(rng, 1)[0])))
@@ -273,3 +394,16 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
         FeaturePipeline({}, {})
     with pytest.raises(RuntimeError):
         IncrementalMapper({}, {}, CorrespondenceGraph())
+    from dagsfm_tpu_torch import interop
+    sc = t_syn.generate(t_syn.SyntheticSceneSpec(
+        num_cameras=2, num_points=10, image_width=32, image_height=32))
+    with pytest.raises(RuntimeError):
+        t_syn.render_images(sc, camera=t_cm.make_simple_camera(
+            1, 32, 32, model="SIMPLE_RADIAL"))
+    with pytest.raises(RuntimeError):
+        interop.ba_problem({})
+    from dagsfm_tpu_torch.sfm import bundle_adjustment as t_ba
+    with pytest.raises(RuntimeError):
+        t_ba.problem_from_observations(
+            np.array([[1.0, 0, 0, 0]]), np.zeros((1, 3)), [0], [0],
+            np.zeros((1, 12)), np.zeros((1, 3)), [0], [0], np.zeros((1, 2)))

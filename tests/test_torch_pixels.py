@@ -1,7 +1,8 @@
 """The pixel path in both packages on the CPU: rendered images -> SIFT ->
 exhaustive matching -> full E/F/H verification -> guided matching ->
-mapper inputs (and, in the slow twin of tests/test_e2e_pixels.py, ->
-incremental mapping).
+mapper inputs (and, in the slow twins of tests/test_e2e_pixels.py and
+tests/test_e2e_distorted.py, -> incremental mapping, the latter from
+images seen through a distorted camera).
 
 The two packages differ in two known places, so matches are compared as
 counts, not bits: the port matches with bf16 descriptors (its K1 kernel's
@@ -129,3 +130,48 @@ def test_pixels_to_model_accuracy():
     assert err["num_reg"] == 12, err
     assert err["ate"] < 0.1, err
     assert err["rot_err_deg_mean"] < 1.0, err
+
+
+@pytest.mark.slow
+def test_distorted_pixels_to_model_recovers_k1():
+    """Port twin of tests/test_e2e_distorted.py: images rendered through
+    SIMPLE_RADIAL (k1 = -0.12) -> SIFT -> matching -> verification ->
+    mapping with BA intrinsics refinement, from an EXIF-like prior focal
+    with k1 = 0 (variant A: k1 recovered) and from a blind camera
+    (variant B: the distortion's sign found), at the test's limits."""
+    from dagsfm_tpu_torch.features import sift as t_sift
+    k1_true = -0.12
+    spec = _spec(448, 336, 12)
+    sc = t_syn.generate(spec)
+    W, H = spec.image_width, spec.image_height
+    truth = t_cm.Camera(1, t_cm.SIMPLE_RADIAL, W, H,
+                        (spec.focal, W / 2.0, H / 2.0, k1_true))
+    images = t_syn.render_images(sc, camera=truth, device="cpu")
+    opts = t_fp.FeaturePipelineOptions(batch_size=4, guided_matching=True)
+    opts.sift = t_sift.SiftOptions(max_num_features=1024,
+                                   candidates_per_octave=512, num_octaves=3)
+
+    def run_with(start):
+        fp = t_fp.FeaturePipeline(images, {i: start for i in images}, opts,
+                                  device="cpu")
+        fp.extract_features()
+        assert all(int(fp.masks[i].sum()) > 400 for i in images)
+        fp.match_and_verify()
+        assert len(fp.two_view) >= 10
+        rec = t_im.IncrementalMapper(*fp.to_mapper_inputs(),
+                                     t_im.MapperOptions(seed=0),
+                                     device="cpu").reconstruct()
+        err = t_syn.pose_errors(rec, sc)
+        assert err["num_reg"] >= 10, err
+        assert err["ate"] < 0.15, err
+        assert err["rot_err_deg_mean"] < 1.5, err
+        assert rec.cameras[1].model_name == "SIMPLE_RADIAL"
+        return rec.cameras[1]
+
+    prior = truth._replace(params=truth.params[:3] + (0.0,))
+    final = run_with(prior)
+    assert final.focal() == pytest.approx(spec.focal)
+    assert final.params[3] == pytest.approx(k1_true, rel=0.2), final
+    blind = t_cm.make_simple_camera(1, W, H, model="SIMPLE_RADIAL")
+    assert not blind.prior_focal
+    assert run_with(blind).params[3] < 0.3 * k1_true

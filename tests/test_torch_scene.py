@@ -154,6 +154,27 @@ def test_write_model_bin_is_byte_identical(tmp_path):
         os.listdir(tmp_path / "jax"))
 
 
+def test_simple_radial_model_file_is_byte_identical(tmp_path):
+    """A blind SIMPLE_RADIAL camera after refinement (focal and k1 moved,
+    no prior) writes the reference's bytes and reads back as itself."""
+    from dagsfm_tpu.scene import cameras as j_cm
+    jrec = _reference_model()
+    jrec.cameras[1] = j_cm.Camera(1, j_cm.SIMPLE_RADIAL, 1024, 768,
+                                  (1097.316, 512.0, 384.0, -0.1187),
+                                  prior_focal=False)
+    trec = interop.reconstruction(jrec.cameras, jrec.images, jrec.points3D)
+    assert trec.cameras[1].model_name == "SIMPLE_RADIAL"
+    assert not trec.cameras[1].prior_focal
+    j_io.write_model_bin(jrec, str(tmp_path / "jax"))
+    t_io.write_model_bin(trec, str(tmp_path / "port"))
+    for name in ("cameras.bin", "images.bin", "points3D.bin"):
+        assert (tmp_path / "jax" / name).read_bytes() == \
+            (tmp_path / "port" / name).read_bytes(), name
+    back = t_io.read_model_bin(str(tmp_path / "port"))
+    assert back.cameras[1].model_id == j_cm.SIMPLE_RADIAL
+    assert back.cameras[1].params == jrec.cameras[1].params
+
+
 def test_pose_errors_match_reference():
     js = j_syn.generate(_spec(j_syn))
     jrec = j_syn.to_reconstruction(js)

@@ -144,8 +144,25 @@ def test_render_images_matches_reference():
     for i in ref:
         assert port[i].dtype == np.float32 and port[i].shape == (48, 64)
         np.testing.assert_allclose(port[i], ref[i], rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        t_syn.render_images(tsc, camera=tsc.camera, device="cpu")
+
+
+@pytest.mark.parametrize("k1", [0.0, -0.3])
+def test_render_images_through_a_camera_matches_reference(k1):
+    """camera=: each pixel's ray is the camera's undistortion of it (one
+    cam_from_img over the pixel grid); at k1 = 0 that is the pinhole
+    image."""
+    jsc, tsc = _scene(96, 96, n_cam=2)
+    params = (tsc.camera.params[0], 48.0, 48.0, k1)
+    ref = j_syn.render_images(jsc, seed=1, camera=j_cm.Camera(
+        1, j_cm.SIMPLE_RADIAL, 96, 96, params))
+    port = t_syn.render_images(tsc, seed=1, device="cpu", camera=t_cm.Camera(
+        1, t_cm.SIMPLE_RADIAL, 96, 96, params))
+    plain = t_syn.render_images(tsc, seed=1, device="cpu")
+    for i in ref:
+        assert port[i].dtype == np.float32 and port[i].shape == (96, 96)
+        np.testing.assert_allclose(port[i], ref[i], rtol=0, atol=1e-5)
+    gap = np.abs(port[1] - plain[1]).max()
+    assert gap < 1e-5 if k1 == 0.0 else gap > 0.05
 
 
 def test_extract_features_with_resize_maps_keypoints_back():

@@ -123,3 +123,4 @@ def test_mapper_on_matching_problem(mode):
     assert err["num_reg"] == 10, err
     assert err["ate"] < ATE and err["rot_err_deg_mean"] < ROT, err
     assert rec.compute_mean_reprojection_error() < 1.0
+

@@ -26,22 +26,31 @@ any error:
      features) -> exhaustive matching -> full E/F/H verification with
      guided matching -> mapping -> COLMAP model, scored against ground
      truth;
-  6. the distorted path: 100 images rendered through a SIMPLE_RADIAL
+  6. the distorted path, cut to 80 images (3,160 pairs; 100 until the
+     distributed path joined): images rendered through a SIMPLE_RADIAL
      camera (f 1097, k1 = -0.12) -> SIFT -> exhaustive matching ->
      uncalibrated F/H verification with guided matching -> mapping from
      one blind SIMPLE_RADIAL camera (f = 1.2 max(W, H), k1 = 0, no prior;
      BA refines f and k1) -> COLMAP model, held to
-     tests/test_e2e_distorted.py's limits carried to 100 images;
+     tests/test_e2e_distorted.py's limits carried to 80 images;
   7. the entry-point path: top2_batch and match_one_pair on the
      distorted path's descriptors; then they, K3's forward and reverse
      top2 on the pair (3,712 x 3,712, to the bit), and K1 on the
      distorted path's first 128-pair batch, against their plain versions
      on the same inputs;
-  8. the planted path: a 100-image planted scene (one DAGSfM cluster)
-     through FeaturePipeline.match_and_verify -> to_mapper_inputs ->
+  8. the planted path, cut to 40 images (100 until the distributed
+     path joined): a planted scene through
+     FeaturePipeline.match_and_verify -> to_mapper_inputs ->
      IncrementalMapper.reconstruct -> write_model_bin, scored against
      ground truth;
-  9. the BA path: bundle adjustment with the iterative PCG solver at
+  9. the distributed path: a 200-image ring whose points each lie in 16
+     consecutive views, planted features -> FeaturePipeline (19,900
+     pairs, 156 K1 launches, essential-only) ->
+     DistributedMapperController (two clusters of at most 100 images
+     before expansion, merge, final BA with track selection) ->
+     write_model_bin, held to tests/test_pipeline.py's limits carried
+     to 200 images;
+  10. the BA path: bundle adjustment with the iterative PCG solver at
      bench_suite.py's 1,000 cameras and 50,000 points, first refining a
      perturbed SIMPLE_RADIAL camera's f and k1 (joint PCG), then 5 LM
      iterations of the plain pinhole solve, timed.
@@ -60,6 +69,7 @@ verification and mapping from extraction. The CPU tests import it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import sys
@@ -76,6 +86,13 @@ PIXEL_SLOTS = 3712       # keypoint slots per image on the pixel path
 K1_TRUE = -0.12          # the distorted path's true radial distortion
 PIXEL_IMAGES = 50        # the pixel path, cut to make room for the
                          # distorted path within the run's time limit
+DISTORTED_IMAGES = 80    # the distorted and planted paths, cut to make
+PLANTED_IMAGES = 40      # room for the distributed path, which maps
+                         # clusters of the planted path's kind
+DIST_IMAGES = 200        # the distributed path's ring of cameras
+DIST_POINTS = 6000
+DIST_WINDOW = 16         # ring cameras that see each of its points
+DIST_MAX_KEYPOINTS = 480  # per image, as on the planted path
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 FMA outside
 # the tensor cores, HBM3
@@ -138,6 +155,21 @@ def distort_keypoints(scene, images: dict, camera, noise: float = 0.0,
             camera.model_id, params, torch.as_tensor(Xc)).numpy() + \
             rng.normal(0.0, noise, (len(vis), 2))
     return images
+
+
+def window_visibility(scene, window: int = DIST_WINDOW, seed: int = 0):
+    """The scene with each point kept only in the views of `window`
+    consecutive ring cameras from a random start (and only where it was
+    visible), and points left in fewer than 2 views dropped: a match
+    graph with the locality of a walk around a site."""
+    rng = np.random.default_rng(seed)
+    I, P = scene.visible.shape
+    start = rng.integers(0, I, P)
+    near = (np.arange(I)[:, None] - start[None, :]) % I < window
+    vis = scene.visible & near
+    vis &= (vis.sum(axis=0) >= 2)[None, :]
+    return dataclasses.replace(scene, visible=vis,
+                               is_outlier=scene.is_outlier & vis)
 
 
 def planted_pairs(B: int, K: int, seed: int, device):
@@ -633,6 +665,93 @@ def main_path(dev, card: str, num_images: int,
     return counts
 
 
+def distributed_path(dev, card: str) -> dict:
+    """DAGSfM in process: a 200-camera ring whose points each lie in a
+    window of 16 consecutive views, planted features -> exhaustive
+    matching and essential-only verification -> DistributedMapperController
+    with the reference's defaults (clusters of at most 100 images,
+    SPECTRAL, final BA with track selection) -> COLMAP model. Held to
+    tests/test_pipeline.py's limits carried to 200 images. Returns the
+    launch counts."""
+    from dagsfm_tpu_torch.features import matching as fm
+    from dagsfm_tpu_torch.pipeline.distributed_mapper import \
+        DistributedMapperController
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import (
+        FeaturePipeline, FeaturePipelineOptions)
+    from dagsfm_tpu_torch.scene import synthetic
+
+    print(f"== distributed path: {DIST_IMAGES} images, {DIST_POINTS} points, "
+          f"each in a window of {DIST_WINDOW} ring views, K={K_SLOTS}",
+          flush=True)
+    t0 = time.perf_counter()
+    sc = window_visibility(synthetic.generate(synthetic.SyntheticSceneSpec(
+        num_cameras=DIST_IMAGES, num_points=DIST_POINTS, pixel_noise=0.3,
+        seed=2)), seed=2)
+    per_image = sc.visible.sum(axis=1)
+    if per_image.max() > DIST_MAX_KEYPOINTS:
+        raise AssertionError(f"an image sees {per_image.max()} points > "
+                             f"{DIST_MAX_KEYPOINTS}")
+    kps, descs, masks = plant_features(sc)
+    ids = sorted(kps)
+    fp = FeaturePipeline({i: None for i in ids}, {i: sc.camera for i in ids},
+                         FeaturePipelineOptions(two_view_essential_only=True),
+                         device=dev)
+    fp.keypoints, fp.descriptors, fp.masks = kps, descs, masks
+    fp.bank = fm.make_bank(descs, masks, ids, device=dev)
+    n_pairs = len(ids) * (len(ids) - 1) // 2
+    n_batches = math.ceil(n_pairs / MATCH_BATCH)
+    print(f"  set-up: scene and planted features "
+          f"{time.perf_counter() - t0:.3f} s; keypoints per image mean "
+          f"{per_image.mean():.1f}, min {per_image.min()}, max "
+          f"{per_image.max()}", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()                                    # counts zeroed
+    t0 = time.perf_counter()
+    fp.match_and_verify()
+    cams, imgs, graph = fp.to_mapper_inputs()
+    ctrl = DistributedMapperController(
+        cams, imgs, graph, two_view_geometries=fp.two_view_edges(),
+        device=dev)
+    rec = ctrl.run()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    err, t_model = _write_and_gate(rec, sc, DIST_IMAGES, 0.05, 0.3,
+                                   min_reg=math.ceil(DIST_IMAGES * 22 / 24))
+    counts = _counts()                                # counts read
+    tm = fp.timings
+    sizes = [len(c.image_ids) for c in ctrl.clusters]
+    rmse = ctrl.separator_rmse(rec)
+    st = ctrl.ba_stats
+    print(f"  on {card}: pairs {n_pairs}, K1 launches "
+          f"{counts['fused_matcher']} "
+          f"(batches {n_batches}); pairs classified {fp.num_classified}, "
+          f"verified {len(fp.two_view)}; view-graph edges "
+          f"{ctrl.view_graph_edges}; clusters {len(sizes)}, sizes {sizes} "
+          f"({ctrl.clustering_summary}); registered per local model "
+          f"{ctrl.local_reg_images}; separators "
+          f"{len(ctrl.separators)}, separator RMSE {rmse:.6f} px; final BA "
+          f"{st.num_iterations} LM iterations, cost {st.initial_cost:.6g} -> "
+          f"{st.final_cost:.6g}", flush=True)
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in ctrl.timings.items())
+    rate = fp.num_classified / tm["verification"]
+    print(f"  on {card}: matching {tm['matching']:.3f} s, verification "
+          f"{tm['verification']:.3f} s ({rate:.2f} pairs/s); controller "
+          f"stages: {stages}; model write+read "
+          f"{t_model:.3f} s; end to end {t1 - t0 + t_model:.3f} s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          "GiB", flush=True)
+    if counts["fused_matcher"] != n_batches:
+        raise AssertionError(f"K1 launches {counts['fused_matcher']} != "
+                             f"batches {n_batches}")
+    if not (len(sizes) >= 2 and len(ctrl.local_recons) >= 2
+            and len(ctrl.separators) >= 2 and max(sizes) >= 100
+            and rmse < 2.0):
+        raise AssertionError("distributed path out of limits")
+    return counts
+
+
 def pixel_path(dev, card: str, num_images: int, max_features: int,
                W: int = 1024, H: int = 768, distorted: bool = False):
     """Rendered pixels to a COLMAP model: returns (launch counts, the
@@ -719,7 +838,7 @@ def pixel_path(dev, card: str, num_images: int, max_features: int,
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     if distorted:
-        # the test's limits at 100 images: its 10 of 12 registered
+        # the test's limits at this size: its 10 of 12 registered
         err, t_model = _write_and_gate(rec, sc, num_images, 0.15, 1.5,
                                        min_reg=math.ceil(num_images * 10
                                                          / 12))
@@ -894,7 +1013,7 @@ def entry_path(fp, dev, card: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--num-images", type=int, default=100,
+    ap.add_argument("--num-images", type=int, default=PLANTED_IMAGES,
                     help="images of the planted path")
     ap.add_argument("--max-features", type=int, default=8192,
                     help="SIFT max_num_features on the pixel and distorted "
@@ -937,19 +1056,22 @@ def main() -> int:
     print(f"== pixel path cut to {PIXEL_IMAGES} images (100 before the "
           "distorted path joined)", flush=True)
     pixel, _ = pixel_path(dev, card, PIXEL_IMAGES, args.max_features)
-    distorted, fp = pixel_path(dev, card, 100, args.max_features,
-                               distorted=True)
+    print(f"== distorted path cut to {DISTORTED_IMAGES} images (100 until "
+          "the distributed path joined)", flush=True)
+    distorted, fp = pixel_path(dev, card, DISTORTED_IMAGES,
+                               args.max_features, distorted=True)
     entry = entry_path(fp, dev, card)
     del fp
-    if args.num_images != 100:
-        print(f"== planted path cut to {args.num_images} images (default "
-              "100)", flush=True)
+    print(f"== planted path cut to {args.num_images} images (100 until the "
+          "distributed path joined)", flush=True)
     if args.breakdown:
         _profile_5pt(dev, card)
     planted = main_path(dev, card, args.num_images, args.breakdown)
+    dist = distributed_path(dev, card)
     bapath = ba_path(dev, card)
     paths = {"tool": tool, "planted": planted, "pixel": pixel,
-             "distorted": distorted, "entry": entry, "ba": bapath}
+             "distorted": distorted, "entry": entry, "distributed": dist,
+             "ba": bapath}
     for e, path in ((k1, "distorted"), (k2, "entry"), (k3, "entry"),
                     (k4, "tool")):
         e["launches"] = paths[path][e["name"]]

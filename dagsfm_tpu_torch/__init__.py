@@ -4,7 +4,8 @@ The JAX package `dagsfm_tpu` is the reference; this package mirrors its
 subpackages and module names so each counterpart sits at the same path.
 It imports `torch` and numpy only — never `jax`, never `dagsfm_tpu`.
 
-Ported so far (the per-cluster reconstruction from rendered pixels):
+Ported so far (the per-cluster reconstruction from rendered pixels, and
+the distributed mapper around it, in one process):
   ops/       — rotations, polynomials, triangulation, epipolar (E, F, H),
                RANSAC with injectable sampling, Umeyama, P3P, EPnP,
                pose refinement, projection, E/F/H two-view classification,
@@ -20,8 +21,15 @@ Ported so far (the per-cluster reconstruction from rendered pixels):
   sfm/       — correspondence graph, bundle adjustment (dense Schur and
                iterative PCG, each also joint with the intrinsics),
                incremental mapper (focal grid for cameras without a
-               prior)
+               prior), Sim(3) cluster merge (aligner), track selection
+  graph/     — view graph (components, spanning tree, rotation-cycle
+               filter) and ctypes bindings of native/build/libgraphcore.so
+  clustering/ — spectral clustering on the device, community detection,
+               cut-and-expand ImageClustering
+  estimation/ — global rotation averaging (L1 + IRLS over a matrix-free
+               CG)
   pipeline/  — FeaturePipeline (extract + match + verify + mapper inputs)
+               and DistributedMapperController
   tools/     — matcher_mfu, the matcher's stage split on the card
   interop.py — turns the JAX package's state (numpy / dicts) into the
                port's containers

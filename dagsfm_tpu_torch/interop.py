@@ -3,24 +3,36 @@
 The JAX side hands over plain data: `SceneArrays._asdict()` with numpy
 values, a Reconstruction's cameras / images / points as dicts of records
 (any objects with the reference's field names), descriptor / mask
-dicts, options as plain dicts (`NamedTuple._asdict()`,
+dicts, view graphs and image clusters (objects with the reference's
+field names), options as plain dicts (`NamedTuple._asdict()`,
 `dataclasses.asdict`) and SIFT outputs as numpy arrays. Nothing here
 imports the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from dagsfm_tpu_torch import device as devmod
+from dagsfm_tpu_torch.clustering.image_clustering import (ClusteringOptions,
+                                                          ImageCluster)
+from dagsfm_tpu_torch.estimation.rotation_averaging import RAOptions
 from dagsfm_tpu_torch.features import sift
 from dagsfm_tpu_torch.features.matching import DescriptorBank, make_bank
+from dagsfm_tpu_torch.graph.view_graph import TwoViewEdge, ViewGraph
 from dagsfm_tpu_torch.ops import two_view_classify as tvc
+from dagsfm_tpu_torch.pipeline.distributed_mapper import \
+    DistributedMapperOptions
 from dagsfm_tpu_torch.scene import cameras as cm
 from dagsfm_tpu_torch.scene.reconstruction import (ImageRecord, Point3DRecord,
                                                    Reconstruction, SceneArrays,
                                                    scene_arrays_from_numpy)
 from dagsfm_tpu_torch.sfm import bundle_adjustment as ba
+from dagsfm_tpu_torch.sfm.aligner import AlignerOptions
+from dagsfm_tpu_torch.sfm.incremental_mapper import MapperOptions
+from dagsfm_tpu_torch.sfm.track_selection import TrackSelectionOptions
 
 
 def scene_arrays(fields: dict, device=None) -> SceneArrays:
@@ -122,3 +134,55 @@ def to_numpy(result):
     outputs) as a tuple of numpy arrays; numpy and None pass through."""
     return tuple(r.detach().cpu().numpy() if hasattr(r, "detach") else r
                  for r in result)
+
+
+def view_graph(vg) -> ViewGraph:
+    """Port ViewGraph from the reference's: the same nodes, and the same
+    edges (R, t, inlier counts) in the same order."""
+    out = ViewGraph()
+    out.nodes = {int(v) for v in vg.nodes}
+    for (i, j), e in vg.edges.items():
+        out.edges[(int(i), int(j))] = TwoViewEdge(
+            int(e.image_id1), int(e.image_id2),
+            np.array(e.rotation, np.float64), np.array(e.position, np.float64),
+            int(e.num_inliers), float(e.visibility_score))
+    return out
+
+
+def image_clusters(clusters) -> list:
+    """Port ImageClusters from the reference's, in the same order."""
+    return [ImageCluster(int(c.cluster_id), [int(i) for i in c.image_ids],
+                         {(int(i), int(j)): float(w)
+                          for (i, j), w in c.edges.items()})
+            for c in clusters]
+
+
+def _plain(v) -> dict:
+    if hasattr(v, "_asdict"):
+        return v._asdict()
+    if dataclasses.is_dataclass(v):
+        return dataclasses.asdict(v)
+    return dict(v)
+
+
+def distributed_mapper_options(fields: dict) -> DistributedMapperOptions:
+    """DistributedMapperOptions from the reference's
+    `dataclasses.asdict(...)` (nested options as dicts or NamedTuples).
+    Model snapshots and the sharded final BA's device count are not
+    ported, so either one set raises."""
+    f = dict(fields)
+    if f.pop("num_devices", None) is not None:
+        raise ValueError("num_devices is read only by the sharded final BA "
+                         "(parallel/ba_sharded.py), which is not ported")
+    nested = {"clustering": ClusteringOptions, "ra_options": RAOptions,
+              "track_selection": TrackSelectionOptions,
+              "aligner": AlignerOptions, "mapper": MapperOptions}
+    for k, cls in nested.items():
+        if k in f:
+            sub = _plain(f[k])
+            if k == "mapper" and (sub.pop("snapshot_path", "")
+                                  and sub.pop("snapshot_images_freq", 0)):
+                raise ValueError("model snapshots are not ported")
+            sub.pop("snapshot_images_freq", None)
+            f[k] = cls(**sub)
+    return DistributedMapperOptions(**f)

@@ -1,13 +1,17 @@
-"""Sim(3) / SE(3) alignment: closed-form Umeyama.
+"""Sim(3) / SE(3) alignment: closed-form Umeyama and its RANSAC.
 
-Port of `umeyama` and `umeyama_np` from dagsfm_tpu/ops/umeyama.py.
-Convention: y ~ s * R @ x + t.
+Port of dagsfm_tpu/ops/umeyama.py. Convention: y ~ s * R @ x + t. The
+reference draws RANSAC's 3-point samples with `jax.random` inside
+`ransac_umeyama`; torch cannot replay that stream, so sampling is split
+out (`sample_triplets`) and `ransac_umeyama` takes the indices.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from dagsfm_tpu_torch.ops import ransac as rnsc
 
 
 def umeyama(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor | None = None,
@@ -53,3 +57,43 @@ def umeyama_np(x: np.ndarray, y: np.ndarray, with_scale: bool = True):
     s = float((D * diag).sum() / max(var_x, 1e-12)) if with_scale else 1.0
     t = my - s * R @ mx
     return s, R, t
+
+
+def transform_points(s, R, t, x):
+    """s R x + t for points x (..., N, 3) under (...) Sim(3)s."""
+    s = torch.as_tensor(s, dtype=x.dtype, device=x.device)
+    return (s[..., None, None] * x) @ R.transpose(-1, -2) + t[..., None, :]
+
+
+def alignment_errors(s, R, t, x, y):
+    return torch.linalg.norm(transform_points(s, R, t, x) - y, dim=-1)
+
+
+def sample_triplets(generator: torch.Generator, mask: torch.Tensor,
+                    num_iters: int) -> torch.Tensor:
+    """(num_iters, 3) uniform 3-subsets of the valid rows of mask (N,)."""
+    return rnsc.sample_indices(generator, mask[None], num_iters, 3)[0]
+
+
+def ransac_umeyama(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                   sample_idx: torch.Tensor, threshold: float):
+    """RANSAC Sim(3) y ≈ s R x + t with every hypothesis in one batch.
+
+    x, y (N, 3); mask (N,) validity; sample_idx (H, 3) rows of x per
+    hypothesis (`sample_triplets`, or the reference's Gumbel draws). The
+    hypothesis with the most inliers wins (the first on ties); with >= 3
+    inliers the model is refit on them by weighted Umeyama, then the
+    inliers are counted again. Returns (s, R, t, inlier_mask,
+    num_inliers)."""
+    ss, Rs, ts = umeyama(x[sample_idx], y[sample_idx])
+    inl = (alignment_errors(ss, Rs, ts, x, y) < threshold) & mask
+    best = torch.argmax(inl.sum(-1))
+    s, R, t = ss[best], Rs[best], ts[best]
+    inliers = (alignment_errors(s, R, t, x, y) < threshold) & mask
+    enough = inliers.sum() >= 3
+    s2, R2, t2 = umeyama(x, y, w=inliers.to(x.dtype))
+    s = torch.where(enough, s2, s)
+    R = torch.where(enough, R2, R)
+    t = torch.where(enough, t2, t)
+    inliers = (alignment_errors(s, R, t, x, y) < threshold) & mask
+    return s, R, t, inliers, inliers.sum()

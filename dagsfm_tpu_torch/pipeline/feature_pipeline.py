@@ -4,8 +4,8 @@ verification (+ guided re-matching) -> mapper inputs.
 Port of dagsfm_tpu/pipeline/feature_pipeline.py: `extract_features`
 (SIFT per image batch on the device, the bf16 descriptor bank kept there),
 exhaustive pairs, `match_and_verify` with full E/F/H classification and
-optional guided matching, `to_mapper_inputs`. Other pair modes and the
-SQLite database wait.
+optional guided matching, `to_mapper_inputs`, `two_view_edges`. Other
+pair modes and the SQLite database wait.
 """
 
 from __future__ import annotations
@@ -255,3 +255,10 @@ class FeaturePipeline:
             mm = np.stack([remap_i[inl_m[:, 0]], remap_j[inl_m[:, 1]]], 1)
             graph.add_matches(i, j, mm.astype(np.uint32))
         return cam_by_id, images, graph
+
+    def two_view_edges(self) -> dict:
+        """{(i, j): (R, t, num_inliers, config)}: each verified pair's pose
+        from its winning two-view model, for the distributed mapper's view
+        graph (`DistributedMapperController(two_view_geometries=...)`)."""
+        return {(i, j): (rec.R, rec.t, rec.num_inliers, rec.config)
+                for (i, j), rec in self.two_view.items()}

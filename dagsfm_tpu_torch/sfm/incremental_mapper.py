@@ -97,10 +97,13 @@ class IncrementalMapper:
             self.rec.add_image(dataclasses.replace(
                 im, point3D_ids=np.full(len(im.xys), -1, np.int64),
                 registered=False))
+        self._init_state()
+
+    def _init_state(self) -> None:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.opts.seed)
-        self._num_reg_at_last_global_ba = 0
-        self._num_pts_at_last_global_ba = 0
+        self._num_reg_at_last_global_ba = self.rec.num_reg_images()
+        self._num_pts_at_last_global_ba = self.rec.num_points3D()
         self._tried_init_pairs: set = set()
         self._failed_regs: dict = {}
         self._merge_candidates: set = set()
@@ -109,6 +112,22 @@ class IncrementalMapper:
         self._norm_cache: dict = {}   # camera_id -> (params, {image: uv})
         # the focal-grid factor picked at each camera's first registration
         self.focal_grid_factors: list = []
+
+    @classmethod
+    def wrap(cls, cameras: dict, rec: Reconstruction,
+             graph: CorrespondenceGraph,
+             options: MapperOptions | None = None,
+             device=None) -> "IncrementalMapper":
+        """A mapper over an existing reconstruction (the merged model), so
+        that its triangulation, track and filtering steps can run on it;
+        `rec` is changed in place and keeps its own cameras."""
+        self = cls.__new__(cls)
+        self.opts = options or MapperOptions()
+        self.device = devmod.resolve(device)
+        self.graph = graph
+        self.rec = rec
+        self._init_state()
+        return self
 
     # ------------------------------------------------------------ utils
     def _t(self, a, dtype=devmod.DTYPE):

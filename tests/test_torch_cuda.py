@@ -425,3 +425,109 @@ def test_focal_grid_repeats_bit_for_bit_on_the_card(cuda):
     for c in a.cameras.values():
         assert abs(c.params[0] - 900.0) < 18.0 and c.params[3] < 0, c
     _same_bits(a, b)
+
+
+def _distributed_problem():
+    """tests/test_pipeline.py's fixture: 24 cameras, 5 % outlier matches."""
+    sc = t_syn.generate(t_syn.SyntheticSceneSpec(
+        num_cameras=24, num_points=600, pixel_noise=0.3, seed=17))
+    return sc, t_syn.to_matching_problem(sc, match_outlier_fraction=0.05,
+                                         seed=2)
+
+
+def test_distributed_mapper_repeats_bit_for_bit_on_the_card(cuda):
+    """The whole controller on the card (E/F/H view graph, rotation
+    averaging, spectral clusters of at most 10, per-cluster mapping, the
+    Sim(3) merge, separator retriangulation, final BA) twice: the same
+    clusters and the same bits in the merged model, within
+    tests/test_pipeline.py's limits."""
+    from dagsfm_tpu_torch.clustering.image_clustering import \
+        ClusteringOptions
+    from dagsfm_tpu_torch.pipeline import distributed_mapper as t_dm
+    from dagsfm_tpu_torch.sfm.incremental_mapper import MapperOptions
+    sc, problem = _distributed_problem()
+    runs = []
+    for _ in range(2):
+        opts = t_dm.DistributedMapperOptions(
+            clustering=ClusteringOptions(num_images_ub=10, image_overlap=6),
+            mapper=MapperOptions(init_min_num_inliers=30,
+                                 num_ransac_hypotheses=256, seed=11),
+            final_ba_iterations=25, retriangulate=True, seed=5)
+        ctrl = t_dm.DistributedMapperController(*problem, opts, device=cuda)
+        runs.append((ctrl, ctrl.run()))
+    (ca, a), (cb, b) = runs
+    assert [c.image_ids for c in ca.clusters] == \
+        [c.image_ids for c in cb.clusters]
+    assert len(ca.clusters) >= 2 and len(ca.separators) >= 2
+    assert a.num_reg_images() >= 22
+    err = t_syn.pose_errors(a, sc)
+    assert err["ate"] < 0.05 and err["rot_err_deg_mean"] < 0.3, err
+    assert ca.separator_rmse(a) < 2.0
+    _same_bits(a, b)
+    for p in a.points3D:
+        assert a.points3D[p].track == b.points3D[p].track
+
+
+def _ra_problem(n: int, seed: int):
+    """A chain plus random edges over n random rotations, each relative
+    rotation with 1 deg of noise and 15 % of them replaced by outliers."""
+    from dagsfm_tpu_torch.ops import rotations as t_rops
+    rng = np.random.default_rng(seed)
+    rot = (lambda aa: t_rops.angleaxis_to_rotmat(torch.as_tensor(aa))
+           .numpy())
+    R = rot(rng.normal(0, 0.8, (n, 3)))
+    edges, rels = [], []
+    for i in range(n):
+        for j in range(i + 1, n):
+            if j != i + 1 and rng.random() > 0.3:
+                continue
+            Rij = rot(rng.normal(0, np.radians(1.0), 3)) @ R[j] @ R[i].T
+            if rng.random() < 0.15:
+                Rij = rot(rng.normal(0, 1.0, 3))
+            edges.append((i, j))
+            rels.append(Rij)
+    return np.array(edges), np.stack(rels)
+
+
+def test_rotation_averaging_on_the_card_equals_the_cpu(cuda):
+    """The L1 + IRLS loops (110 x 50 CG steps over segment sums) on the
+    card and on the CPU agree to rel 1e-9, and the orientation filter
+    keeps the same pairs."""
+    from dagsfm_tpu_torch.estimation import rotation_averaging as t_ra
+    edges, rels = _ra_problem(40, 3)
+    a = t_ra.estimate_rotations(40, edges, rels, device=cuda)
+    b = t_ra.estimate_rotations(40, edges, rels, device="cpu")
+    np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-9)
+    np.testing.assert_array_equal(
+        t_ra.filter_pairs_from_orientation(edges, rels, a, device=cuda),
+        t_ra.filter_pairs_from_orientation(edges, rels, a, device="cpu"))
+    assert np.array_equal(a, t_ra.estimate_rotations(40, edges, rels,
+                                                     device=cuda))
+
+
+def test_ransac_umeyama_on_the_card_equals_the_cpu(cuda):
+    """RANSAC Sim(3) on the same samples: s, R, t to rel 1e-9, the same
+    inliers."""
+    from dagsfm_tpu_torch.ops import umeyama as t_um
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(500, 3))
+    R = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    R *= np.linalg.det(R)
+    y = 1.7 * x @ R.T + np.array([1.0, 2.0, 3.0]) \
+        + rng.normal(0, 0.01, (500, 3))
+    y[:100] += rng.normal(0, 1.0, (100, 3))
+    mask = np.ones(500, bool)
+    mask[-20:] = False
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    idx = t_um.sample_triplets(gen, torch.as_tensor(mask), 256)
+    outs = [t_um.ransac_umeyama(*(torch.as_tensor(v, device=d)
+                                  for v in (x, y, mask, idx)), 0.05)
+            for d in (cuda, "cpu")]
+    for u, v in zip(*outs):
+        u, v = u.cpu().numpy(), v.numpy()
+        if u.dtype == bool:
+            np.testing.assert_array_equal(u, v)
+        else:
+            np.testing.assert_allclose(u, v, rtol=1e-9, atol=1e-12)
+    assert int(outs[0][4]) >= 380

@@ -407,3 +407,29 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
         t_ba.problem_from_observations(
             np.array([[1.0, 0, 0, 0]]), np.zeros((1, 3)), [0], [0],
             np.zeros((1, 12)), np.zeros((1, 3)), [0], [0], np.zeros((1, 2)))
+    from dagsfm_tpu_torch.clustering.image_clustering import ImageClustering
+    from dagsfm_tpu_torch.clustering.spectral import spectral_cluster
+    from dagsfm_tpu_torch.estimation import rotation_averaging as t_ra
+    from dagsfm_tpu_torch.graph import native as t_ng
+    from dagsfm_tpu_torch.graph.view_graph import ViewGraph
+    from dagsfm_tpu_torch.pipeline.distributed_mapper import \
+        DistributedMapperController
+    from dagsfm_tpu_torch.scene.reconstruction import Reconstruction
+    from dagsfm_tpu_torch.sfm.aligner import SfMAligner
+    edges, rels = np.array([[0, 1]]), np.eye(3)[None]
+    for call in (
+            lambda: ViewGraph().filter_cycles_by_rotation(),
+            lambda: spectral_cluster(edges, np.ones(1), 4, 2),
+            lambda: t_ng.ncut(2, edges, np.ones(1), 2),
+            lambda: ImageClustering([0, 1], {(0, 1): 1.0}),
+            lambda: t_ra.estimate_rotations(2, edges, rels),
+            lambda: t_ra.estimate_rotations_nonlinear(2, edges, rels),
+            lambda: t_ra.filter_pairs_from_orientation(edges, rels,
+                                                       np.eye(3)[[0, 0]]),
+            lambda: SfMAligner([]),
+            lambda: IncrementalMapper.wrap({}, Reconstruction(),
+                                           CorrespondenceGraph()),
+            lambda: DistributedMapperController({}, {},
+                                                CorrespondenceGraph())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

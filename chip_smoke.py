@@ -45,12 +45,23 @@ any error:
      ground truth;
   9. the distributed path: a 200-image ring whose points each lie in 16
      consecutive views, planted features -> FeaturePipeline (19,900
-     pairs, 156 K1 launches, essential-only) ->
-     DistributedMapperController (two clusters of at most 100 images
-     before expansion, merge, final BA with track selection) ->
+     pairs, 156 K1 launches, essential-only) -> 20 of the pose edges
+     turned by 30 degrees -> DistributedMapperController (the view-graph
+     filters must drop every turned edge; two clusters of at most 100
+     images before expansion, merge, final BA with track selection) ->
      write_model_bin, held to tests/test_pipeline.py's limits carried
      to 200 images;
-  10. the BA path: bundle adjustment with the iterative PCG solver at
+  10. the database path: COLMAP's workflow at one cluster's size, two
+     disconnected planted scenes of 50 images (the second's ids from
+     1001) in one database: FeaturePipeline writes it (4,950 pairs, 39
+     K1 launches), a fresh FeaturePipeline.run resumes from it (no
+     launch), MapperController maps it into two models with snapshots,
+     the models are written as .bin, .txt and .ply and read back, the
+     pose edges are read back from it, and run_matcher_on_database
+     matches 470 ring pairs on a second database that holds features
+     only (4 K1 launches); K1 is then held against its plain version at
+     that database's K;
+  11. the BA path: bundle adjustment with the iterative PCG solver at
      bench_suite.py's 1,000 cameras and 50,000 points, first refining a
      perturbed SIMPLE_RADIAL camera's f and k1 (joint PCG), then 5 LM
      iterations of the plain pinhole solve, timed.
@@ -93,6 +104,11 @@ DIST_IMAGES = 200        # the distributed path's ring of cameras
 DIST_POINTS = 6000
 DIST_WINDOW = 16         # ring cameras that see each of its points
 DIST_MAX_KEYPOINTS = 480  # per image, as on the planted path
+DIST_TURNED = 20         # distributed-path pose edges turned by 30 degrees
+DB_IMAGES = 50           # the database path: images per scene (two scenes,
+DB_POINTS = 2000         # one cluster of 100 images together)
+DB_OFFSET = 1000         # the second scene's image ids start past this
+DB_RING = 5              # database matching: each image and its next 5
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 FMA outside
 # the tensor cores, HBM3
@@ -170,6 +186,28 @@ def window_visibility(scene, window: int = DIST_WINDOW, seed: int = 0):
     vis &= (vis.sum(axis=0) >= 2)[None, :]
     return dataclasses.replace(scene, visible=vis,
                                is_outlier=scene.is_outlier & vis)
+
+
+def turn_edges(edges: dict, n: int, min_inliers: int, degrees: float = 30.0,
+               seed: int = 0):
+    """`edges` ({(i, j): (R, t, num_inliers, config)}) with the rotations
+    of n of them, drawn among those with at least min_inliers inliers,
+    turned by `degrees` about random axes: (new edges, the turned
+    pairs)."""
+    rng = np.random.default_rng(seed)
+    cand = [k for k, e in edges.items() if e[0] is not None
+            and e[2] >= min_inliers]
+    turned = [cand[k] for k in rng.choice(len(cand), n, replace=False)]
+    out = dict(edges)
+    for k in turned:
+        axis = _unit(rng.normal(size=3))
+        Kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                       [-axis[1], axis[0], 0]])
+        th = math.radians(degrees)
+        Rx = np.eye(3) + math.sin(th) * Kx + (1 - math.cos(th)) * Kx @ Kx
+        R, t, ninl, config = edges[k]
+        out[k] = (Rx @ R, t, ninl, config)
+    return out, set(turned)
 
 
 def planted_pairs(B: int, K: int, seed: int, device):
@@ -674,15 +712,15 @@ def distributed_path(dev, card: str) -> dict:
     tests/test_pipeline.py's limits carried to 200 images. Returns the
     launch counts."""
     from dagsfm_tpu_torch.features import matching as fm
-    from dagsfm_tpu_torch.pipeline.distributed_mapper import \
-        DistributedMapperController
+    from dagsfm_tpu_torch.pipeline.distributed_mapper import (
+        DistributedMapperController, DistributedMapperOptions)
     from dagsfm_tpu_torch.pipeline.feature_pipeline import (
         FeaturePipeline, FeaturePipelineOptions)
     from dagsfm_tpu_torch.scene import synthetic
 
     print(f"== distributed path: {DIST_IMAGES} images, {DIST_POINTS} points, "
-          f"each in a window of {DIST_WINDOW} ring views, K={K_SLOTS}",
-          flush=True)
+          f"each in a window of {DIST_WINDOW} ring views, K={K_SLOTS}; "
+          f"{DIST_TURNED} pose edges turned by 30 deg", flush=True)
     t0 = time.perf_counter()
     sc = window_visibility(synthetic.generate(synthetic.SyntheticSceneSpec(
         num_cameras=DIST_IMAGES, num_points=DIST_POINTS, pixel_noise=0.3,
@@ -711,9 +749,11 @@ def distributed_path(dev, card: str) -> dict:
     t0 = time.perf_counter()
     fp.match_and_verify()
     cams, imgs, graph = fp.to_mapper_inputs()
+    min_matches = DistributedMapperOptions().min_num_matches
+    edges, turned = turn_edges(fp.two_view_edges(), DIST_TURNED,
+                               min_matches, seed=2)
     ctrl = DistributedMapperController(
-        cams, imgs, graph, two_view_geometries=fp.two_view_edges(),
-        device=dev)
+        cams, imgs, graph, two_view_geometries=edges, device=dev)
     rec = ctrl.run()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -742,6 +782,19 @@ def distributed_path(dev, card: str) -> dict:
           f"{t_model:.3f} s; end to end {t1 - t0 + t_model:.3f} s; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
           "GiB", flush=True)
+    vg = ctrl.view_graph_edges
+    steps = list(vg)
+    built = {k for k, e in edges.items()
+             if e[0] is not None and e[2] >= min_matches}
+    removed = built - set(ctrl.view_graph.edges)
+    print(f"  view-graph filters on the turned edges: "
+          + ", ".join(f"{b} {vg[a] - vg[b]}" for a, b in zip(steps,
+                                                            steps[1:]))
+          + f" edges dropped; turned {len(turned)}, of them dropped "
+          f"{len(turned & removed)}; dropped in all {len(removed)}",
+          flush=True)
+    if not (vg["built"] > vg["final"] and turned <= removed):
+        raise AssertionError("the view-graph filters kept a turned edge")
     if counts["fused_matcher"] != n_batches:
         raise AssertionError(f"K1 launches {counts['fused_matcher']} != "
                              f"batches {n_batches}")
@@ -750,6 +803,245 @@ def distributed_path(dev, card: str) -> dict:
             and rmse < 2.0):
         raise AssertionError("distributed path out of limits")
     return counts
+
+
+def _same_models(a, b) -> bool:
+    """Two ReconstructionManagers hold the same cameras, registered poses
+    and keypoints, points and tracks, to the bit."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if {c: (v.model_id, v.params) for c, v in x.cameras.items()} != \
+                {c: (v.model_id, v.params) for c, v in y.cameras.items()}:
+            return False
+        if sorted(x.reg_image_ids) != sorted(y.reg_image_ids):
+            return False
+        for i in x.reg_image_ids:
+            p, q = x.images[i], y.images[i]
+            if not all(np.array_equal(getattr(p, f), getattr(q, f))
+                       for f in ("qvec", "tvec", "xys", "point3D_ids")):
+                return False
+        if sorted(x.points3D) != sorted(y.points3D):
+            return False
+        for k, p in x.points3D.items():
+            q = y.points3D[k]
+            if not (np.array_equal(p.xyz, q.xyz) and p.track == q.track):
+                return False
+    return True
+
+
+def database_path(dev, card: str) -> dict:
+    """COLMAP's own workflow on one database at one cluster's size: two
+    disconnected planted scenes of DB_IMAGES images (the second's image
+    ids offset by DB_OFFSET) -> FeaturePipeline writes the database ->
+    a fresh FeaturePipeline.run resumes from it -> MapperController
+    (one model per scene, snapshots) -> the models as .bin, .txt and
+    .ply, read back -> the pose edges read back from the database ->
+    run_matcher_on_database on ring pairs of a second database that
+    holds features only. Held to the planted path's limits per model.
+    Returns the launch counts; then holds K1 against its plain version
+    at the database's K."""
+    import os
+
+    from dagsfm_tpu_torch.features import matching as fm
+    from dagsfm_tpu_torch.ops import matcher_kernel as mk
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import (
+        FeaturePipeline, FeaturePipelineOptions, load_features_from_database,
+        load_two_view_geometries_from_database, run_matcher_on_database)
+    from dagsfm_tpu_torch.scene import io as scene_io
+    from dagsfm_tpu_torch.scene import synthetic
+    from dagsfm_tpu_torch.scene.reconstruction import Reconstruction
+    from dagsfm_tpu_torch.scene.reconstruction_manager import \
+        ReconstructionManager
+    from dagsfm_tpu_torch.sfm.incremental_mapper import MapperOptions
+    from dagsfm_tpu_torch.sfm.mapper_controller import (ControllerOptions,
+                                                        MapperController)
+
+    print(f"== database path: two planted scenes of {DB_IMAGES} images "
+          f"({DB_POINTS} points each; the second's ids from "
+          f"{DB_OFFSET + 1}) in one COLMAP database, K={K_SLOTS}", flush=True)
+    t0 = time.perf_counter()
+    scenes, kps, descs, masks = {}, {}, {}, {}
+    for seed, off in ((2, 0), (3, DB_OFFSET)):
+        sc = synthetic.generate(synthetic.SyntheticSceneSpec(
+            num_cameras=DB_IMAGES, num_points=DB_POINTS, pixel_noise=0.3,
+            seed=seed, max_track_length=12))
+        scenes[off] = sc
+        k, d, m = plant_features(sc, seed=seed)
+        for i in k:
+            kps[i + off], descs[i + off], masks[i + off] = k[i], d[i], m[i]
+    if scenes[0].camera != scenes[DB_OFFSET].camera:
+        raise AssertionError("the two scenes' cameras differ")
+    ids = sorted(kps)
+    opts = FeaturePipelineOptions(two_view_essential_only=True)
+    n_pairs = len(ids) * (len(ids) - 1) // 2
+    ring = [(s[k], s[k + d]) for s in (ids[:DB_IMAGES], ids[DB_IMAGES:])
+            for k in range(len(s)) for d in range(1, DB_RING + 1)
+            if k + d < len(s)]
+    batches = {"write": math.ceil(n_pairs / MATCH_BATCH),
+               "database matching": math.ceil(len(ring) / MATCH_BATCH)}
+    print(f"  set-up: scenes and planted features "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        db, db2 = os.path.join(tmp, "database.db"), \
+            os.path.join(tmp, "features.db")
+        snap = os.path.join(tmp, "snapshots")
+        fp = FeaturePipeline({i: None for i in ids},
+                             {i: scenes[0].camera for i in ids}, opts,
+                             device=dev, database_path=db)
+        fp.keypoints, fp.descriptors, fp.masks = kps, descs, masks
+        fp.bank = fm.make_bank(descs, masks, ids, device=dev)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()                                # counts zeroed
+        # 1. write: the features alone (what feature_extractor leaves) to
+        # db2, then match, verify and write the whole database
+        t0 = time.perf_counter()
+        fp.write_database(db2)
+        fp.match_and_verify()
+        fp.write_database()
+        secs["write"] = time.perf_counter() - t0
+        k1 = {"write": _counts()["fused_matcher"]}
+        # 2. resume: nothing is computed
+        t0 = time.perf_counter()
+        resume = FeaturePipeline({}, {}, database_path=db)
+        cams, images, graph = resume.run()
+        secs["resume"] = time.perf_counter() - t0
+        k1["resume"] = _counts()["fused_matcher"] - k1["write"]
+        _, mem_images, mem_graph = fp.to_mapper_inputs()
+        same_pairs = set(graph.pair_matches) == set(mem_graph.pair_matches)
+        same_matches = same_pairs and all(
+            np.array_equal(graph.matches_between(i, j), m)
+            for (i, j), m in mem_graph.pair_matches.items())
+        # 3. map
+        t0 = time.perf_counter()
+        mgr = MapperController(cams, images, graph, ControllerOptions(
+            mapper=MapperOptions(seed=0, snapshot_path=snap,
+                                 snapshot_images_freq=10)),
+            device=dev).run()
+        torch.cuda.synchronize()
+        secs["map"] = time.perf_counter() - t0
+        # 4. the models as .bin, .txt and .ply, read back
+        t0 = time.perf_counter()
+        read_back = {}
+        for layout, binary in (("bin", True), ("txt", False)):
+            out = os.path.join(tmp, f"sparse_{layout}")
+            mgr.write(out, binary=binary)
+            read_back[layout] = ReconstructionManager.read(out)
+        ply = []
+        for k, rec in enumerate(mgr):
+            path = os.path.join(tmp, f"model{k}.ply")
+            scene_io.write_model_ply(rec, path)
+            ply.append(os.path.getsize(path))
+        secs["model I/O"] = time.perf_counter() - t0
+        snaps = sorted(os.listdir(snap)) if os.path.isdir(snap) else []
+        last_snap = scene_io.read_model_bin(os.path.join(snap, snaps[-1])) \
+            if snaps else None
+        # 5. the pose edges read back
+        t0 = time.perf_counter()
+        edges = load_two_view_geometries_from_database(db, device=dev)
+        secs["pose edges"] = time.perf_counter() - t0
+        mem_edges = {k: e for k, e in fp.two_view_edges().items()
+                     if e[2] >= 5}
+        rot_gap = max((_angle_deg(edges[k][0], e[0])
+                       for k, e in mem_edges.items() if k in edges),
+                      default=0.0)
+        # 6. matching and verification on the database of features
+        t0 = time.perf_counter()
+        n_db = run_matcher_on_database(db2, ring, opts, device=dev)
+        torch.cuda.synchronize()
+        secs["database matching"] = time.perf_counter() - t0
+        counts = _counts()                            # counts read
+        k1["database matching"] = counts["fused_matcher"] - k1["write"] \
+            - k1["resume"]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with scene_io.ColmapDatabase(db2) as d:
+            n_db_rows = d.num_two_view_geometries()
+            db2_pairs = {tuple(g[:2]) for g in
+                         d.read_all_two_view_geometries()}
+        with scene_io.ColmapDatabase(db) as d:
+            n_geoms = d.num_two_view_geometries()
+        db_bytes = os.path.getsize(db)
+        # K1 held against its plain version at the database's K, on the
+        # first batch of ring pairs (outside the counted run)
+        _, _, ddesc, dmask, *_ = load_features_from_database(db2)
+        bank = fm.make_bank(ddesc, dmask, sorted(ddesc), device=dev)
+        first = ring[:MATCH_BATCH]
+        i1 = torch.tensor([bank.slot[a] for a, _ in first], device=dev)
+        i2 = torch.tensor([bank.slot[b] for _, b in first], device=dev)
+        d1, d2, m1, m2 = (bank.desc[i1], bank.desc[i2], bank.mask[i1],
+                          bank.mask[i2])
+        _hold_j(f"fused matcher, the database's first ring batch "
+                f"(B={len(first)}, K={d1.shape[1]})",
+                mk.fused_match_j(d1, d2, m1, m2),
+                mk.fused_match_j_reference(d1, d2, m1, m2),
+                mk.borderline_rows(d1, d2, m1, m2))
+
+    tm = fp.timings
+    print(f"  on {card}: K1 launches {k1} (batches {batches}); write "
+          f"{secs['write']:.3f} s (matching {tm['matching']:.3f} s, "
+          f"verification {tm['verification']:.3f} s: {fp.num_classified} "
+          f"pairs classified, {fp.num_classified / tm['verification']:.2f} "
+          f"pairs/s; {len(fp.two_view)} verified); database "
+          f"{db_bytes / 2 ** 20:.2f} MiB on disk, {n_geoms} two-view "
+          f"geometries", flush=True)
+    print(f"  on {card}: resume {secs['resume']:.3f} s (timings "
+          f"{resume.timings}, {len(images)} images, "
+          f"{len(graph.pair_matches)} pairs, the same correspondences as "
+          f"in memory: {same_matches})", flush=True)
+    errs = []
+    for k, rec in enumerate(mgr):
+        off = DB_OFFSET if min(rec.reg_image_ids) > DB_OFFSET else 0
+        view = Reconstruction()
+        view.images = {i - off: im for i, im in rec.images.items()}
+        err = synthetic.pose_errors(view, scenes[off])
+        errs.append(err)
+        print(f"  model {k} (scene from id {off + 1}): registered "
+              f"{err['num_reg']}/{DB_IMAGES}, points {rec.num_points3D()}, "
+              f"PLY {ply[k]} bytes, ATE {err['ate']:.6f}, rotation error "
+              f"mean {err['rot_err_deg_mean']:.6f} deg, max "
+              f"{err['rot_err_deg_max']:.6f} deg", flush=True)
+    print(f"  on {card}: map {secs['map']:.3f} s "
+          f"({sum(e['num_reg'] for e in errs) / secs['map']:.3f} images/s), "
+          f"{len(mgr)} models; snapshots {len(snaps)} ({snaps}); model "
+          f"I/O (.bin, .txt, .ply, read back) {secs['model I/O']:.3f} s; "
+          f"pose edges {secs['pose edges']:.3f} s ({len(edges)} edges, "
+          f"{len(mem_edges)} in memory, largest rotation gap "
+          f"{rot_gap:.3g} deg); database matching "
+          f"{secs['database matching']:.3f} s ({len(ring)} ring pairs, "
+          f"{n_db} verified, {n_db_rows} rows); database path "
+          f"{sum(secs.values()):.3f} s; peak device memory {peak:.2f} GiB",
+          flush=True)
+
+    if k1 != {"write": batches["write"], "resume": 0,
+              "database matching": batches["database matching"]}:
+        raise AssertionError(f"database path: K1 launches {k1}")
+    if resume.timings != {} or set(images) != set(mem_images) \
+            or not same_matches:
+        raise AssertionError("database path: the resume is not the run")
+    if len(mgr) != 2 or any(e["num_reg"] != DB_IMAGES or e["ate"] >= 0.05
+                            or e["rot_err_deg_mean"] >= 0.2 for e in errs):
+        raise AssertionError(f"database path: models out of limits {errs}")
+    if not all(_same_models(read_back[x], mgr) for x in read_back):
+        raise AssertionError("database path: models did not read back")
+    if len(snaps) < 4 or last_snap.num_reg_images() != \
+            int(snaps[-1].split("_")[1]):
+        raise AssertionError(f"database path: snapshots {snaps}")
+    if set(edges) != set(mem_edges) or rot_gap >= 1e-3:
+        raise AssertionError("database path: pose edges differ")
+    if not (n_db == n_db_rows >= 0.95 * len(ring)
+            and db2_pairs <= set(fp.two_view)):
+        raise AssertionError(f"database path: database matching verified "
+                             f"{n_db} of {len(ring)}")
+    return counts
+
+
+def _angle_deg(R1, R2) -> float:
+    cos = (np.trace(np.asarray(R1).T @ np.asarray(R2)) - 1) / 2
+    return math.degrees(math.acos(min(1.0, max(-1.0, cos))))
 
 
 def pixel_path(dev, card: str, num_images: int, max_features: int,
@@ -1068,10 +1360,11 @@ def main() -> int:
         _profile_5pt(dev, card)
     planted = main_path(dev, card, args.num_images, args.breakdown)
     dist = distributed_path(dev, card)
+    database = database_path(dev, card)
     bapath = ba_path(dev, card)
     paths = {"tool": tool, "planted": planted, "pixel": pixel,
              "distorted": distorted, "entry": entry, "distributed": dist,
-             "ba": bapath}
+             "database": database, "ba": bapath}
     for e, path in ((k1, "distorted"), (k2, "entry"), (k3, "entry"),
                     (k4, "tool")):
         e["launches"] = paths[path][e["name"]]

@@ -25,13 +25,17 @@ from dagsfm_tpu_torch.graph.view_graph import TwoViewEdge, ViewGraph
 from dagsfm_tpu_torch.ops import two_view_classify as tvc
 from dagsfm_tpu_torch.pipeline.distributed_mapper import \
     DistributedMapperOptions
+from dagsfm_tpu_torch.pipeline.feature_pipeline import TwoViewRecord
 from dagsfm_tpu_torch.scene import cameras as cm
 from dagsfm_tpu_torch.scene.reconstruction import (ImageRecord, Point3DRecord,
                                                    Reconstruction, SceneArrays,
                                                    scene_arrays_from_numpy)
+from dagsfm_tpu_torch.scene.reconstruction_manager import \
+    ReconstructionManager
 from dagsfm_tpu_torch.sfm import bundle_adjustment as ba
 from dagsfm_tpu_torch.sfm.aligner import AlignerOptions
 from dagsfm_tpu_torch.sfm.incremental_mapper import MapperOptions
+from dagsfm_tpu_torch.sfm.mapper_controller import ControllerOptions
 from dagsfm_tpu_torch.sfm.track_selection import TrackSelectionOptions
 
 
@@ -91,6 +95,29 @@ def reconstruction(cameras: dict, images: dict, points3D: dict,
     rec._next_point3D_id = (next_point3D_id if next_point3D_id is not None
                             else max(rec.points3D, default=0) + 1)
     return rec
+
+
+def reconstruction_manager(mgr) -> ReconstructionManager:
+    """Port ReconstructionManager from the reference's: each model carried
+    over by `reconstruction`, in the same order."""
+    out = ReconstructionManager()
+    for rec in mgr:
+        out.add(reconstruction(rec.cameras, rec.images, rec.points3D,
+                               rec._next_point3D_id))
+    return out
+
+
+def _array(x, dtype=np.float64):
+    return None if x is None else np.array(x, dtype)
+
+
+def two_view_records(records: dict) -> dict:
+    """Port TwoViewRecords from the reference pipeline's `two_view` dict
+    (the same pairs in the same order)."""
+    return {(int(i), int(j)): TwoViewRecord(
+        _array(r.R), _array(r.t), np.array(r.inlier_matches, np.uint32),
+        int(r.num_inliers), int(r.config), E=_array(r.E), F=_array(r.F),
+        H=_array(r.H)) for (i, j), r in records.items()}
 
 
 def descriptor_bank(descriptors: dict, masks: dict,
@@ -165,11 +192,20 @@ def _plain(v) -> dict:
     return dict(v)
 
 
+def controller_options(fields: dict) -> ControllerOptions:
+    """ControllerOptions from the reference's `dataclasses.asdict(...)`
+    (the mapper's options, snapshots included, as a dict or dataclass)."""
+    f = dict(fields)
+    if "mapper" in f:
+        f["mapper"] = MapperOptions(**_plain(f["mapper"]))
+    return ControllerOptions(**f)
+
+
 def distributed_mapper_options(fields: dict) -> DistributedMapperOptions:
     """DistributedMapperOptions from the reference's
     `dataclasses.asdict(...)` (nested options as dicts or NamedTuples).
-    Model snapshots and the sharded final BA's device count are not
-    ported, so either one set raises."""
+    The sharded final BA's device count is not ported, so setting it
+    raises."""
     f = dict(fields)
     if f.pop("num_devices", None) is not None:
         raise ValueError("num_devices is read only by the sharded final BA "
@@ -179,10 +215,5 @@ def distributed_mapper_options(fields: dict) -> DistributedMapperOptions:
               "aligner": AlignerOptions, "mapper": MapperOptions}
     for k, cls in nested.items():
         if k in f:
-            sub = _plain(f[k])
-            if k == "mapper" and (sub.pop("snapshot_path", "")
-                                  and sub.pop("snapshot_images_freq", 0)):
-                raise ValueError("model snapshots are not ported")
-            sub.pop("snapshot_images_freq", None)
-            f[k] = cls(**sub)
+            f[k] = cls(**_plain(f[k]))
     return DistributedMapperOptions(**f)

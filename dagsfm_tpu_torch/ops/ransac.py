@@ -28,6 +28,8 @@ class RansacResult(NamedTuple):
     inliers: torch.Tensor      # (B, N) bool
     num_inliers: torch.Tensor  # (B,)
     score: torch.Tensor        # (B,) MSAC score (lower is better)
+    valid: torch.Tensor        # (B,) bool: the best minimal model had at
+    #                            least sample-size inliers (before the refit)
 
 
 def sample_indices(generator: torch.Generator, mask: torch.Tensor,
@@ -85,6 +87,7 @@ def ransac(solver: Callable, residual_fn: Callable, data: tuple,
     r = residual_fn(best_model[:, None], *data)[:, 0]
     inliers = (r < thr[:, None]) & mask
     num_inl = inliers.sum(-1)
+    valid = num_inl >= sample_idx.shape[-1]
 
     if refit is not None:
         re_model = refit(*data, inliers)
@@ -101,4 +104,4 @@ def ransac(solver: Callable, residual_fn: Callable, data: tuple,
     final_r = residual_fn(best_model[:, None], *data)[:, 0]
     final_score = torch.sum(
         torch.where(mask, torch.minimum(final_r, thr[:, None]), 0.0), -1)
-    return RansacResult(best_model, inliers, num_inl, final_score)
+    return RansacResult(best_model, inliers, num_inl, final_score, valid)

@@ -39,7 +39,7 @@ CONFIG_NAMES = {
     WATERMARK: "WATERMARK",
 }
 
-_BATCH_ELEMS = 1 << 16   # correspondences per verification batch
+BATCH_ELEMS = 1 << 16   # correspondences per device batch of pairs
 SAMPLE_SIZES = {"E": 5, "F": 7, "H": 4}
 
 
@@ -126,10 +126,42 @@ def _efh_batched(x1, x2, p1, p2, mask, thr_n, thr_p, K1b, K2b, samples):
 
 
 def _e_batched(x1, x2, mask, thr_n, samples):
-    """Essential-only RANSAC + pose for a batch of pairs."""
+    """Essential-only RANSAC + pose for a batch of pairs: the RansacResult,
+    then R, t and the number of points in front."""
     res = ransac_essential(x1, x2, mask, thr_n, samples["E"])
     R, t, nf = epi.pose_from_essential(res.model, x1, x2, res.inliers)
-    return res.model, res.num_inliers, res.inliers, R, t, nf
+    return res, R, t, nf
+
+
+def length_batches(lengths: list, max_elems: int) -> list:
+    """Indices into `lengths` in batches, shortest first: each batch holds
+    as many items as fit in max_elems when padded to its longest (at
+    least one)."""
+    order = sorted(range(len(lengths)), key=lambda k: lengths[k])
+    out, s = [], 0
+    while s < len(order):
+        e = s + 1
+        while e < len(order) and (e - s + 1) * lengths[order[e]] <= max_elems:
+            e += 1
+        out.append(order[s:e])
+        s = e
+    return out
+
+
+def pad_pairs(rows: list, dev, min_len: int = 0):
+    """One batch of pairs on `dev`: each row a tuple of (n, 2) arrays of
+    one pair. Returns one (B, N, 2) float tensor per tuple position, zero
+    past each pair's n, and the (B, N) bool mask of real rows; N is the
+    longest n (at least min_len)."""
+    N = max([min_len] + [len(r[0]) for r in rows])
+    cols = [np.zeros((len(rows), N, 2)) for _ in rows[0]]
+    mask = np.zeros((len(rows), N), bool)
+    for k, r in enumerate(rows):
+        for c, a in zip(cols, r):
+            c[k, :len(a)] = a
+        mask[k, :len(r[0])] = True
+    return ([devmod.as_tensor(c, dev) for c in cols],
+            torch.as_tensor(mask, device=dev))
 
 
 def classify_pairs(pair_data: list, options: TwoViewOptions = TwoViewOptions(),
@@ -139,7 +171,7 @@ def classify_pairs(pair_data: list, options: TwoViewOptions = TwoViewOptions(),
     pair_data rows: (pair_key, pix1 (M,2), pix2 (M,2), K1, K2,
     image_size1, image_size2, calibrated). Returns pair_key ->
     TwoViewResult. With `essential_only`, calibrated pairs run the
-    essential RANSAC alone. Pairs run in batches of about _BATCH_ELEMS
+    essential RANSAC alone. Pairs run in batches of about BATCH_ELEMS
     correspondences (pairs x longest pair in the batch)."""
     dev = devmod.resolve(device)
     gen = torch.Generator(device=dev)
@@ -161,48 +193,34 @@ def classify_pairs(pair_data: list, options: TwoViewOptions = TwoViewOptions(),
                                 calibrated)))
 
     for kind in ("e", "efh"):
-        group = sorted((r for r in rows if r[0] == kind),
-                       key=lambda r: len(r[2][0]))
-        s = 0
-        while s < len(group):
-            e = s + 1
-            while e < len(group) and \
-                    (e - s + 1) * len(group[e][2][0]) <= _BATCH_ELEMS:
-                e += 1
-            chunk = group[s:e]
-            s = e
-            for pk, res in _run_chunk(kind, chunk, options, gen, dev):
+        group = [r for r in rows if r[0] == kind]
+        for batch in length_batches([len(r[2][0]) for r in group],
+                                    BATCH_ELEMS):
+            for pk, res in _run_chunk(kind, [group[k] for k in batch],
+                                      options, gen, dev):
                 out[pk] = res
     return out
 
 
 def _run_chunk(kind, chunk, options, gen, dev):
-    N = max(len(r[2][0]) for r in chunk)
-    B = len(chunk)
-    arr = {k: np.zeros((B, N, 2)) for k in ("x1", "x2", "p1", "p2")}
-    mb = np.zeros((B, N), bool)
-    for k, (_, _, p) in enumerate(chunk):
-        n = len(p[0])
-        arr["p1"][k, :n], arr["p2"][k, :n] = p[0], p[1]
-        arr["x1"][k, :n], arr["x2"][k, :n] = p[2], p[3]
-        mb[k, :n] = True
-    T = {k: devmod.as_tensor(v, dev) for k, v in arr.items()}
-    mask = torch.as_tensor(mb, device=dev)
+    (p1, p2, x1, x2), mask = pad_pairs([r[2][:4] for r in chunk], dev)
+    B, N = mask.shape
     thr_n = devmod.as_tensor([r[2][4] for r in chunk], dev)
     if kind == "e":
         samples = draw_samples(gen, mask, options.num_hypotheses, "E")
-        res = _e_batched(T["x1"], T["x2"], mask, thr_n, samples)
+        resE, R, t, nf = _e_batched(x1, x2, mask, thr_n, samples)
         # F and H did not run: with nF = nH = 0 neither can be selected
         z = (lambda *s: torch.zeros((B,) + s))
-        res = res + (z(3, 3), z(), z(N).bool(), z(3, 3), z(), z(N).bool(),
-                     z(3, 3), z(3))
+        res = (resE.model, resE.num_inliers, resE.inliers, R, t, nf,
+               z(3, 3), z(), z(N).bool(), z(3, 3), z(), z(N).bool(),
+               z(3, 3), z(3))
     else:
         thr_p = devmod.as_tensor([r[2][5] for r in chunk], dev)
         K1b = devmod.as_tensor(np.stack([r[2][6] for r in chunk]), dev)
         K2b = devmod.as_tensor(np.stack([r[2][7] for r in chunk]), dev)
         samples = draw_samples(gen, mask, options.num_hypotheses)
-        res = _efh_batched(T["x1"], T["x2"], T["p1"], T["p2"], mask, thr_n,
-                           thr_p, K1b, K2b, samples)
+        res = _efh_batched(x1, x2, p1, p2, mask, thr_n, thr_p, K1b, K2b,
+                           samples)
     res = [r.cpu().numpy() for r in res]
     results = []
     for k, (_, pk, p) in enumerate(chunk):

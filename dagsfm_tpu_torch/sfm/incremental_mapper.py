@@ -1,6 +1,6 @@
 """Incremental SfM mapper: host control loop over batched device steps.
 
-Port of dagsfm_tpu/sfm/incremental_mapper.py (model snapshots wait).
+Port of dagsfm_tpu/sfm/incremental_mapper.py.
 Each geometric step is one batched call on the mapper's device —
 essential RANSAC for the initial pair, P3P-RANSAC with its EPnP LO
 refit plus Cauchy pose refinement for registration (over a grid of
@@ -25,6 +25,7 @@ replayed).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -38,6 +39,7 @@ from dagsfm_tpu_torch.ops import triangulation as tri
 from dagsfm_tpu_torch.ops.projection import triangulation_angles
 from dagsfm_tpu_torch.ops.two_view_classify import ransac_essential
 from dagsfm_tpu_torch.scene import cameras as cm
+from dagsfm_tpu_torch.scene import io as scene_io
 from dagsfm_tpu_torch.scene.reconstruction import (Reconstruction,
                                                    scene_arrays_from_numpy)
 from dagsfm_tpu_torch.sfm import bundle_adjustment as ba
@@ -70,6 +72,10 @@ class MapperOptions:
     ba_global_points_ratio: float = 1.1
     ba_local_max_iterations: int = 15
     ba_global_max_iterations: int = 40
+    # a model snapshot (.bin) under snapshot_path every snapshot_images_freq
+    # registered images after the initial pair; "" or 0 = none
+    snapshot_path: str = ""
+    snapshot_images_freq: int = 0
     num_ransac_hypotheses: int = 512
     max_track_len: int = 16
     registration_mode: str = "batch"   # 'batch' (top-5 per round) | 'strict'
@@ -102,6 +108,7 @@ class IncrementalMapper:
     def _init_state(self) -> None:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.opts.seed)
+        self._last_snapshot_at = 0
         self._num_reg_at_last_global_ba = self.rec.num_reg_images()
         self._num_pts_at_last_global_ba = self.rec.num_points3D()
         self._tried_init_pairs: set = set()
@@ -746,6 +753,20 @@ class IncrementalMapper:
         self._num_reg_at_last_global_ba = 0
         self._num_pts_at_last_global_ba = 0
 
+    def _maybe_snapshot(self) -> None:
+        """Write the model to snapshot_path/snapshot_{n:06d} once
+        snapshot_images_freq images have registered since the last
+        snapshot (or since the initial pair)."""
+        if not self.opts.snapshot_path or not self.opts.snapshot_images_freq:
+            return
+        n = self.rec.num_reg_images()
+        if n - self._last_snapshot_at < self.opts.snapshot_images_freq:
+            return
+        self._last_snapshot_at = n
+        out = os.path.join(self.opts.snapshot_path, f"snapshot_{n:06d}")
+        os.makedirs(out, exist_ok=True)
+        scene_io.write_model_bin(self.rec, out)
+
     def reconstruct(self) -> Reconstruction:
         """Full incremental pipeline with init-pair retries: a bootstrap
         that never grows past its two images is torn down and the next
@@ -800,6 +821,8 @@ class IncrementalMapper:
         self.filter_points()
         if self.rec.num_points3D() and not self._bootstrap_viable():
             return
+        # the initial pair does not count toward snapshot_images_freq
+        self._last_snapshot_at = self.rec.num_reg_images()
         strict = self.opts.registration_mode == "strict"
         per_round = 1 if strict else 5
         stall = 0
@@ -817,6 +840,7 @@ class IncrementalMapper:
                 progressed = True
                 if strict:
                     self._local_refine([image_id])
+                self._maybe_snapshot()
             if not strict and new_imgs:
                 self._local_refine(new_imgs)
             stall = 0 if progressed else stall + 1

@@ -9,8 +9,10 @@ score) and match_one_pair equal their plain versions to the bit. Also:
 the camera models' undistortion on the card against the CPU, and that
 bundle adjustment with intrinsics (dense joint and iterative PCG), a
 mapping from a blind distorted camera and one through the focal grid
-(a blind camera per image) repeat bit for bit. Every test
-here needs a CUDA card and skips without one.
+(a blind camera per image) repeat bit for bit; the multi-model
+controller repeats bit for bit, and essential verification and the pose
+edges read from a database agree with the CPU. Every test here needs a
+CUDA card and skips without one.
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -531,3 +533,128 @@ def test_ransac_umeyama_on_the_card_equals_the_cpu(cuda):
         else:
             np.testing.assert_allclose(u, v, rtol=1e-9, atol=1e-12)
     assert int(outs[0][4]) >= 380
+
+
+def _two_view_pairs(n_pairs: int, seed: int):
+    """verify_pairs inputs: n_pairs random two-view problems of 40-300
+    normalised correspondences, 30 % outliers, 4 px at f = 800."""
+    from dagsfm_tpu_torch.ops import rotations as t_rops
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n_pairs):
+        n = int(rng.integers(40, 300))
+        X = rng.uniform(-2, 2, (n, 3)) + [0, 0, 8]
+        R = t_rops.angleaxis_to_rotmat(
+            torch.as_tensor(rng.normal(size=3) * 0.1)).numpy()
+        t = np.array([1.0, 0.2, 0.1]) + rng.normal(size=3) * 0.1
+        x1 = X[:, :2] / X[:, 2:] + rng.normal(size=(n, 2)) * 0.5 / 800
+        X2 = X @ R.T + t
+        x2 = X2[:, :2] / X2[:, 2:] + rng.normal(size=(n, 2)) * 0.5 / 800
+        bad = rng.random(n) < 0.3
+        x2[bad] = rng.uniform(-0.4, 0.4, (bad.sum(), 2))
+        out.append(((k, k + 1), x1, x2, (4.0 / 800) ** 2))
+    return out
+
+
+def test_verify_pairs_on_the_card_equals_the_cpu(cuda):
+    """Essential verification of 24 pairs on the same samples: the same
+    counts and inlier sets, R and t to 1e-9 (rel and abs, as rotation
+    averaging; the 5-point roots move by up to 1.5e-10 in t between the
+    card and the CPU)."""
+    from dagsfm_tpu_torch.sfm import two_view as t_tv
+    pairs = _two_view_pairs(24, 0)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    idx = t_tv._draw_samples(gen, pairs, 256)
+    a = t_tv.verify_pairs(pairs, sample_idx=idx, device=cuda)
+    b = t_tv.verify_pairs(pairs, sample_idx=idx, device="cpu")
+    assert list(a) == list(b)
+    for k, (R, t, n, nf, inl, valid) in b.items():
+        gR, gt, gn, gf, ginl, gv = a[k]
+        np.testing.assert_allclose(gR, R, rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(gt, t, rtol=1e-9, atol=1e-9)
+        assert (gn, gf, gv) == (n, nf, valid) and valid
+        np.testing.assert_array_equal(ginl, inl)
+
+
+def test_mapper_controller_repeats_bit_for_bit_on_the_card(cuda):
+    """Two disconnected 8-camera scenes through MapperController twice on
+    the card: two models of 8, the same bits in both runs."""
+    import dataclasses
+
+    from dagsfm_tpu_torch.sfm.correspondence_graph import \
+        CorrespondenceGraph
+    from dagsfm_tpu_torch.sfm.mapper_controller import MapperController
+    images, graph = {}, CorrespondenceGraph()
+    for seed, off in ((2, 0), (3, 100)):
+        sc = t_syn.generate(t_syn.SyntheticSceneSpec(
+            num_cameras=8, num_points=250, pixel_noise=0.3, seed=seed))
+        cams, ims, g = t_syn.to_matching_problem(sc)
+        for i, im in ims.items():
+            images[i + off] = dataclasses.replace(im, image_id=i + off)
+            graph.add_image(i + off, len(im.xys))
+        for (i, j), m in g.pair_matches.items():
+            graph.add_matches(i + off, j + off, m)
+    a, b = (MapperController(cams, images, graph, device=cuda).run()
+            for _ in range(2))
+    assert len(a) == len(b) == 2
+    assert sorted(r.num_reg_images() for r in a) == [8, 8]
+    for x, y in zip(a, b):
+        _same_bits(x, y)
+
+
+def _geometry_db(path: str):
+    """A database of a planted 8-camera scene whose verified pairs cycle
+    CALIBRATED (E), UNCALIBRATED (F) and PLANAR (H) rows."""
+    from dagsfm_tpu_torch.ops import two_view_classify as t_tvc
+    from dagsfm_tpu_torch.scene import io as t_io
+    sc = t_syn.generate(t_syn.SyntheticSceneSpec(
+        num_cameras=8, num_points=300, pixel_noise=0.3, seed=6))
+    K = sc.camera.calibration_matrix()
+    Kinv = np.linalg.inv(K)
+    configs = (t_tvc.CALIBRATED, t_tvc.UNCALIBRATED, t_tvc.PLANAR)
+    with t_io.ColmapDatabase(path) as db:
+        db.add_camera(sc.camera)
+        slot = np.cumsum(sc.visible, axis=1) - 1
+        for i in range(8):
+            db.add_image(f"image{i + 1:05d}.jpg", sc.camera.camera_id,
+                         image_id=i + 1)
+            db.add_keypoints(i + 1, sc.pixels[i, sc.visible[i]])
+        n = 0
+        for i in range(8):
+            for j in range(i + 1, 8):
+                common = np.nonzero(sc.visible[i] & sc.visible[j])[0]
+                if len(common) < 15:
+                    continue
+                R = sc.R[j] @ sc.R[i].T
+                t = sc.t[j] - R @ sc.t[i]
+                E = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]],
+                              [-t[1], t[0], 0]]) @ R
+                config = configs[n % 3]
+                n += 1
+                db.add_two_view_geometry(
+                    i + 1, j + 1,
+                    np.stack([slot[i, common], slot[j, common]], 1),
+                    config=config,
+                    E=E if config == t_tvc.CALIBRATED else None,
+                    F=Kinv.T @ E @ Kinv
+                    if config == t_tvc.UNCALIBRATED else None,
+                    H=K @ (R + 0.1 * np.outer(t, [0, 0, 1])) @ Kinv
+                    if config == t_tvc.PLANAR else None)
+    return n
+
+
+def test_pose_edges_from_a_database_on_the_card_equal_the_cpu(cuda,
+                                                              tmp_path):
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import \
+        load_two_view_geometries_from_database
+    path = str(tmp_path / "database.db")
+    n = _geometry_db(path)
+    a = load_two_view_geometries_from_database(path, device=cuda)
+    b = load_two_view_geometries_from_database(path, device="cpu")
+    assert list(a) == list(b) and len(a) == n >= 9
+    assert {v[3] for v in a.values()} == {2, 3, 4}
+    for k, (R, t, ninl, config) in b.items():
+        assert a[k][2:] == (ninl, config)
+        np.testing.assert_allclose(a[k][0], R, rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(a[k][1], t, rtol=1e-9, atol=1e-12)

@@ -414,8 +414,12 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
     from dagsfm_tpu_torch.graph.view_graph import ViewGraph
     from dagsfm_tpu_torch.pipeline.distributed_mapper import \
         DistributedMapperController
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import (
+        load_two_view_geometries_from_database, run_matcher_on_database)
     from dagsfm_tpu_torch.scene.reconstruction import Reconstruction
     from dagsfm_tpu_torch.sfm.aligner import SfMAligner
+    from dagsfm_tpu_torch.sfm.mapper_controller import MapperController
+    from dagsfm_tpu_torch.sfm.two_view import verify_pairs
     edges, rels = np.array([[0, 1]]), np.eye(3)[None]
     for call in (
             lambda: ViewGraph().filter_cycles_by_rotation(),
@@ -430,6 +434,11 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
             lambda: IncrementalMapper.wrap({}, Reconstruction(),
                                            CorrespondenceGraph()),
             lambda: DistributedMapperController({}, {},
-                                                CorrespondenceGraph())):
+                                                CorrespondenceGraph()),
+            lambda: FeaturePipeline({}, {}, database_path="database.db"),
+            lambda: MapperController({}, {}, CorrespondenceGraph()),
+            lambda: verify_pairs([]),
+            lambda: load_two_view_geometries_from_database("database.db"),
+            lambda: run_matcher_on_database("database.db", [(1, 2)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

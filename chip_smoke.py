@@ -21,8 +21,9 @@ any error:
      shape (B = 128, K = 3,712) and K3 at 3,712 x 3,712;
   4. the tool path: dagsfm_tpu_torch.tools.matcher_mfu (K4's four modes
      and K1 at B = 256, K = 1024);
-  5. the pixel path, cut to 50 images (1,225 pairs; 100 until the
-     distorted path joined): rendered 1024 x 768 images -> SIFT (8192
+  5. the pixel path, cut to 30 images (435 pairs; 50 until the parallel
+     path joined, 100 until the distorted path did): rendered 1024 x 768
+     images -> SIFT (8192
      features) -> exhaustive matching -> full E/F/H verification with
      guided matching -> mapping -> COLMAP model, scored against ground
      truth;
@@ -64,7 +65,17 @@ any error:
   11. the BA path: bundle adjustment with the iterative PCG solver at
      bench_suite.py's 1,000 cameras and 50,000 points, first refining a
      perturbed SIMPLE_RADIAL camera's f and k1 (joint PCG), then 5 LM
-     iterations of the plain pinhole solve, timed.
+     iterations of the plain pinhole solve, timed;
+  12. the parallel path: the distributed path's clusters as mapping jobs
+     for two `python -m dagsfm_tpu_torch local_sfm_worker` processes on
+     the one card, then a fresh controller that resumes from their
+     partitions and runs the sharded final BA over NCCL (one rank, one
+     shard), held to the distributed path's gates; a rendered ring of 24
+     images in two matching jobs, one in this process (its K1 launches
+     counted), one in a `local_matching_worker` process, merged and
+     mapped; solve_sharded on the BA path's 1M observations, D = 8
+     against D = 1 and two spawned ranks on the card (to rel 1e-9), and
+     estimate_rotations_sharded on the distributed path's edges.
 Every kernel launch counter is zeroed just before each path and read
 just after it. It prints a `kernels` JSON line (K1's launches are the
 distorted path's), the card line and, last, the result.
@@ -95,8 +106,9 @@ DESC_NOISE = 0.02        # per-dimension descriptor noise of an observation
 MATCH_BATCH = 128        # pairs per matcher launch on the main path
 PIXEL_SLOTS = 3712       # keypoint slots per image on the pixel path
 K1_TRUE = -0.12          # the distorted path's true radial distortion
-PIXEL_IMAGES = 50        # the pixel path, cut to make room for the
-                         # distorted path within the run's time limit
+PIXEL_IMAGES = 30        # the pixel path, cut to make room for the
+                         # distorted and parallel paths within the run's
+                         # time limit
 DISTORTED_IMAGES = 80    # the distorted and planted paths, cut to make
 PLANTED_IMAGES = 40      # room for the distributed path, which maps
                          # clusters of the planted path's kind
@@ -109,6 +121,11 @@ DB_IMAGES = 50           # the database path: images per scene (two scenes,
 DB_POINTS = 2000         # one cluster of 100 images together)
 DB_OFFSET = 1000         # the second scene's image ids start past this
 DB_RING = 5              # database matching: each image and its next 5
+PAR_IMAGES = 24          # the parallel path's matching jobs: a rendered
+PAR_W, PAR_H = 640, 480  # ring of 24 images, each with its next 3, at
+PAR_FOCAL = 680.0        # tests/test_distributed_matching.py's field of
+PAR_RING = 3             # view
+PAR_FEATURES = 1024      # local_matching_worker's default
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 FMA outside
 # the tensor cores, HBM3
@@ -710,12 +727,15 @@ def distributed_path(dev, card: str) -> dict:
     with the reference's defaults (clusters of at most 100 images,
     SPECTRAL, final BA with track selection) -> COLMAP model. Held to
     tests/test_pipeline.py's limits carried to 200 images. Returns the
-    launch counts."""
+    launch counts and what the parallel path starts from: the feature
+    pipeline, the controller, the scene and the local models as mapped
+    (size-sorted)."""
     from dagsfm_tpu_torch.features import matching as fm
     from dagsfm_tpu_torch.pipeline.distributed_mapper import (
         DistributedMapperController, DistributedMapperOptions)
     from dagsfm_tpu_torch.pipeline.feature_pipeline import (
         FeaturePipeline, FeaturePipelineOptions)
+    from dagsfm_tpu_torch.scene import io as scene_io
     from dagsfm_tpu_torch.scene import synthetic
 
     print(f"== distributed path: {DIST_IMAGES} images, {DIST_POINTS} points, "
@@ -754,9 +774,13 @@ def distributed_path(dev, card: str) -> dict:
                                min_matches, seed=2)
     ctrl = DistributedMapperController(
         cams, imgs, graph, two_view_geometries=edges, device=dev)
-    rec = ctrl.run()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the local models as mapped, before the merge grows the anchor's
+        rec = ctrl.run(checkpoint_path=tmp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        local = [scene_io.read_model_bin(f"{tmp}/partition{k}")
+                 for k in range(len(ctrl.local_recons))]
     err, t_model = _write_and_gate(rec, sc, DIST_IMAGES, 0.05, 0.3,
                                    min_reg=math.ceil(DIST_IMAGES * 22 / 24))
     counts = _counts()                                # counts read
@@ -799,10 +823,10 @@ def distributed_path(dev, card: str) -> dict:
         raise AssertionError(f"K1 launches {counts['fused_matcher']} != "
                              f"batches {n_batches}")
     if not (len(sizes) >= 2 and len(ctrl.local_recons) >= 2
-            and len(ctrl.separators) >= 2 and max(sizes) >= 100
+            and len(ctrl.separators) >= 2 and max(sizes) >= DIST_IMAGES // 2
             and rmse < 2.0):
         raise AssertionError("distributed path out of limits")
-    return counts
+    return counts, {"fp": fp, "ctrl": ctrl, "scene": sc, "local": local}
 
 
 def _same_models(a, b) -> bool:
@@ -1165,7 +1189,8 @@ def ba_path(dev, card: str, num_cameras: int = 1000,
     held to tests/test_bundle_adjustment.py's
     test_recovers_focal_and_k1_iterative limits; then 5 LM iterations
     of the plain pinhole solve on the same scene, timed as bench_suite
-    times them. Returns the launch counts."""
+    times them. Returns the launch counts and (the pinhole scene, the
+    plain solve's LM iterations per second)."""
     from dagsfm_tpu_torch.scene import cameras
     from dagsfm_tpu_torch.scene import synthetic
     from dagsfm_tpu_torch.sfm import bundle_adjustment as ba
@@ -1217,10 +1242,10 @@ def ba_path(dev, card: str, num_cameras: int = 1000,
     # the scene's true k1 is 0: its unperturbed arrays are the pinhole
     # problem
     t0 = time.perf_counter()
-    prob = ba.make_problem(base._replace(cam_model_id=torch.full_like(
-        base.cam_model_id, cameras.SIMPLE_PINHOLE)), max_track_len=20,
-        const_image=const)
+    pinhole = base._replace(cam_model_id=torch.full_like(
+        base.cam_model_id, cameras.SIMPLE_PINHOLE))
     del base
+    prob = ba.make_problem(pinhole, max_track_len=20, const_image=const)
     print(f"  set-up: pinhole problem {time.perf_counter() - t0:.3f} s",
           flush=True)
     iters = 5
@@ -1237,7 +1262,453 @@ def ba_path(dev, card: str, num_cameras: int = 1000,
           f"{st.initial_cost:.6g} -> {st.final_cost:.6g}", flush=True)
     if not st.final_cost < st.initial_cost:
         raise AssertionError("BA path: the plain solve did not descend")
-    return _counts()                                  # counts read
+    return _counts(), (pinhole, iters / secs)         # counts read
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start_cli(args: list, log: str):
+    """`python -m dagsfm_tpu_torch <args>` from the checkout's root, its
+    output to the file `log`."""
+    import os
+    import subprocess
+    f = open(log, "w")
+    p = subprocess.Popen([sys.executable, "-m", "dagsfm_tpu_torch", *args],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         stdout=f, stderr=subprocess.STDOUT,
+                         env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    p.log_file = f
+    return p
+
+
+def _finish_cli(p, timeout: float, what: str) -> str:
+    """Wait for a CLI process (killed past `timeout`); its output, or an
+    AssertionError if it failed."""
+    import subprocess
+    try:
+        p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+    p.log_file.close()
+    with open(p.log_file.name) as f:
+        out = f.read()
+    if p.returncode != 0:
+        raise AssertionError(f"{what} exited {p.returncode}:\n{out[-3000:]}")
+    return out
+
+
+def _pose_gap(a, b):
+    """(the same registered images with the same poses, to the bit; the
+    largest rotation gap in degrees and translation gap over the images
+    both registered)."""
+    from dagsfm_tpu_torch.ops import rotations as rops
+    common = sorted(set(a.reg_image_ids) & set(b.reg_image_ids))
+    same = sorted(a.reg_image_ids) == sorted(b.reg_image_ids) and all(
+        np.array_equal(a.images[i].qvec, b.images[i].qvec)
+        and np.array_equal(a.images[i].tvec, b.images[i].tvec)
+        for i in common)
+    deg = max((_angle_deg(rops.quat_to_rotmat_np(a.images[i].qvec),
+                          rops.quat_to_rotmat_np(b.images[i].qvec))
+               for i in common), default=0.0)
+    dt = max((float(np.abs(a.images[i].tvec - b.images[i].tvec).max())
+              for i in common), default=0.0)
+    return same, deg, dt
+
+
+def _rank_solve(rank: int, world: int, coordinator: str, device: str,
+                arrays: dict, D: int, opts: dict, q) -> None:
+    """One rank of the sharded BA on `device`, over gloo: puts (rank,
+    "ok", (qvec, tvec, points, costs)) or (rank, "error", message) on
+    q."""
+    import torch.distributed as tdist
+    try:
+        from dagsfm_tpu_torch.parallel import ba_sharded
+        from dagsfm_tpu_torch.parallel.distributed import init_multihost
+        from dagsfm_tpu_torch.scene.reconstruction import \
+            scene_arrays_from_numpy
+        from dagsfm_tpu_torch.sfm import bundle_adjustment as ba
+        init_multihost(coordinator, world, rank, device=device,
+                       backend="gloo")
+        dev = torch.device(device)
+        prob, pts = ba_sharded.shard_problem(
+            scene_arrays_from_numpy(arrays, dev), D, device=dev)
+        out, st = ba_sharded.solve_sharded(prob, ba.BAOptions(**opts))
+        q.put((rank, "ok", (out.image_qvec.cpu().numpy(),
+                            out.image_tvec.cpu().numpy(),
+                            ba_sharded.gather_points(
+                                out, pts, arrays["points_xyz"].shape[0]),
+                            np.array([st.initial_cost, st.final_cost]))))
+    except Exception as exc:  # noqa: BLE001 — reported to the parent
+        q.put((rank, "error", f"{type(exc).__name__}: {exc}"))
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+
+
+def _two_ranks(dev, arrays: dict, D: int, opts: dict,
+               timeout: float = 180.0):
+    """The sharded solve on two spawned ranks of one card: (results by
+    rank, or None; the first error message)."""
+    import queue
+
+    import torch.multiprocessing as tmp
+    ctx = tmp.get_context("spawn")
+    q = ctx.Queue()
+    coordinator = f"127.0.0.1:{_free_port()}"
+    procs = [ctx.Process(target=_rank_solve, args=(
+        r, 2, coordinator, str(dev), arrays, D, opts, q))
+        for r in range(2)]
+    for p in procs:
+        p.start()
+    got, error = {}, None
+    deadline = time.perf_counter() + timeout
+    while len(got) < 2 and error is None:
+        try:
+            r, status, val = q.get(timeout=max(
+                1.0, deadline - time.perf_counter()))
+        except queue.Empty:
+            error = f"no result within {timeout:.0f} s"
+            break
+        if status == "ok":
+            got[r] = val
+        else:
+            error = val
+    for p in procs:
+        p.join(timeout=30)
+        if p.is_alive():
+            p.terminate()
+            p.join()
+    return (got if error is None else None), error
+
+
+def _rel_err(got: tuple, ref: tuple) -> float:
+    return max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+               for a, b in zip(got, ref))
+
+
+def parallel_path(dev, card: str, dist_state: dict, ba_state) -> dict:
+    """The parallel layer on the card, in one process group (NCCL, one
+    rank): the mapping jobs (`_mapping_jobs`), the matching jobs
+    (`_matching_jobs`) and the sharded solves (`_sharded_solves`).
+    Returns the launch counts."""
+    import torch.distributed as tdist
+
+    from dagsfm_tpu_torch.parallel.distributed import init_multihost
+
+    clusters = dist_state["ctrl"].clusters
+    print(f"== parallel path: {len(clusters)} mapping jobs of the "
+          f"distributed path ({[len(c.image_ids) for c in clusters]} "
+          f"images) in two worker processes; {PAR_IMAGES} rendered "
+          f"{PAR_W} x {PAR_H} images in two matching jobs; sharded solves",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()                                    # counts zeroed
+    world = init_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
+                           device=dev)[1]
+    secs = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            _mapping_jobs(dev, card, dist_state, tmp, world, secs)
+            _matching_jobs(dev, card, tmp, secs)
+        _sharded_solves(dev, card, dist_state["ctrl"], ba_state, world, secs)
+        counts = _counts()                            # counts read
+    finally:
+        tdist.destroy_process_group()
+    print(f"  parallel path on {card}: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+          + f"; K1 launches {counts['fused_matcher']}; peak device memory "
+          f"(this process) "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    return counts
+
+
+def _mapping_jobs(dev, card: str, dist_state: dict, tmp: str, world: int,
+                  secs: dict) -> None:
+    """DAGSfM's master and workers on the distributed path's clusters: its
+    features and matches in a database, clusters.json, two `python -m
+    dagsfm_tpu_torch local_sfm_worker` processes on the one card, then a
+    fresh controller that resumes from their partitions and runs the
+    sharded final BA (one rank, one shard), held to the distributed
+    path's gates."""
+    import json
+    import os
+
+    import torch.distributed as tdist
+
+    from dagsfm_tpu_torch.pipeline.distributed_mapper import (
+        DistributedMapperController, DistributedMapperOptions)
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import FeaturePipeline
+    from dagsfm_tpu_torch.scene import io as scene_io
+
+    fp, ctrl, sc = dist_state["fp"], dist_state["ctrl"], dist_state["scene"]
+    clusters = ctrl.clusters
+    wd, db = os.path.join(tmp, "work"), os.path.join(tmp, "database.db")
+    t0 = time.perf_counter()
+    fp.write_database(db)
+    ctrl.export_cluster_jobs(wd)
+    secs["master: database and jobs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    workers = [_start_cli(["local_sfm_worker", "--database_path", db,
+                           "--work_dir", wd, "--host_id", str(h)],
+                          os.path.join(tmp, f"worker{h}.log"))
+               for h in (0, 1)]
+    outs, worker_secs = [], []
+    try:
+        for h, p in enumerate(workers):
+            outs.append(_finish_cli(p, 900, f"local_sfm_worker {h}"))
+            worker_secs.append(time.perf_counter() - t0)
+    finally:
+        _stop(workers)
+    secs["workers"] = max(worker_secs)
+    done = []
+    for out in outs:
+        line = [ln for ln in out.splitlines()
+                if "completed clusters" in ln][-1]
+        done.append(set(json.loads(line.split("completed clusters")[1])))
+        peak = [ln for ln in out.splitlines() if "peak" in ln]
+        print(f"  {line}; {peak}", flush=True)
+    leftovers = [d for d in os.listdir(wd) if ".tmp." in d]
+    parts = [scene_io.read_model_bin(os.path.join(wd, f"partition{k}"))
+             for k in range(len(clusters))]
+    order = sorted(range(len(clusters)),
+                   key=lambda c: -len(clusters[c].image_ids))
+    in_process = [ctrl.local_reg_images[order.index(k)]
+                  for k in range(len(clusters))]
+    gaps = [_pose_gap(parts[k], dist_state["local"][order.index(k)])
+            for k in range(len(clusters))]
+    print(f"  workers on {card}: wall {secs['workers']:.3f} s (each "
+          f"{[round(x, 3) for x in worker_secs]}; the in-process "
+          f"reconstruction stage {ctrl.timings['reconstruction']:.3f} s); "
+          f"completed {[sorted(d) for d in done]}; registered per partition "
+          f"{[p.num_reg_images() for p in parts]} (in process {in_process});"
+          f" against the in-process models (poses to the bit, largest "
+          f"rotation gap deg, largest translation gap): {gaps}", flush=True)
+    if done[0] & done[1] or done[0] | done[1] != set(range(len(clusters))) \
+            or leftovers \
+            or [p.num_reg_images() for p in parts] != in_process:
+        raise AssertionError(f"parallel path: mapping jobs {done}, "
+                             f"leftovers {leftovers}")
+    # the master: a fresh controller resumes from the partitions
+    t0 = time.perf_counter()
+    cams, images, graph = FeaturePipeline(
+        {}, {}, device=dev).load_from_database(db)
+    master = DistributedMapperController(
+        cams, images, graph, DistributedMapperOptions(
+            distributed_final_ba=True), device=dev)
+    merged = master.run(checkpoint_path=wd)
+    torch.cuda.synchronize()
+    secs["master: merge and sharded final BA"] = time.perf_counter() - t0
+    _write_and_gate(merged, sc, DIST_IMAGES, 0.05, 0.3,
+                    min_reg=math.ceil(DIST_IMAGES * 22 / 24))
+    rmse = master.separator_rmse(merged)
+    st = master.ba_stats
+    print(f"  master on {card}: world size {world}, backend "
+          f"{tdist.get_backend()}, shards 1; stages "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in master.timings.items())
+          + f"; sharded final BA {st.num_iterations} LM iterations, cost "
+          f"{st.initial_cost:.6g} -> {st.final_cost:.6g}; separator RMSE "
+          f"{rmse:.6f} px", flush=True)
+    if not (rmse < 2.0 and len(master.separators) >= 2):
+        raise AssertionError("parallel path: master out of limits")
+
+
+def _matching_jobs(dev, card: str, tmp: str, secs: dict) -> None:
+    """A rendered ring's candidate pairs cut into two matching jobs: the
+    first run in this process through run_matching_worker (its K1
+    launches counted), the second in a `local_matching_worker` process;
+    the job databases merged and mapped by MapperController."""
+    import json
+    import os
+
+    from dagsfm_tpu_torch.features import sift
+    from dagsfm_tpu_torch.parallel.distributed import (
+        make_matching_jobs, merge_matching_databases, run_matching_worker)
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import (
+        FeaturePipeline, FeaturePipelineOptions)
+    from dagsfm_tpu_torch.scene import cameras
+    from dagsfm_tpu_torch.scene import synthetic
+    from dagsfm_tpu_torch.sfm.mapper_controller import (ControllerOptions,
+                                                        MapperController)
+
+    sc = synthetic.generate(synthetic.SyntheticSceneSpec(
+        num_cameras=PAR_IMAGES, num_points=40, image_width=PAR_W,
+        image_height=PAR_H, focal=PAR_FOCAL, seed=5, ring_radius=9.0,
+        point_cloud_extent=3.5))
+    t0 = time.perf_counter()
+    images = synthetic.render_images(sc, device=dev)
+    ids = sorted(images)
+    pairs = sorted({(min(ids[a], ids[(a + d) % len(ids)]),
+                     max(ids[a], ids[(a + d) % len(ids)]))
+                    for a in range(len(ids)) for d in range(1, PAR_RING + 1)})
+    jobs = make_matching_jobs([(i, j, 1.0) for (i, j) in pairs], 2,
+                              device=dev)
+    wd, img_dir = os.path.join(tmp, "match"), os.path.join(tmp, "images")
+    os.makedirs(wd)
+    os.makedirs(img_dir)
+    for i, im in images.items():
+        np.save(os.path.join(img_dir, f"image{i}.npy"), im)
+    with open(os.path.join(wd, "matching_jobs.json"), "w") as f:
+        json.dump(jobs, f)
+    secs["matching: set-up"] = time.perf_counter() - t0
+    covered = sorted(tuple(p) for j in jobs for p in j["pairs"])
+    t0 = time.perf_counter()
+    worker = _start_cli(
+        ["local_matching_worker", "--image_path", img_dir, "--work_dir", wd,
+         "--host_id", "1", "--focal", str(PAR_FOCAL), "--max_num_features",
+         str(PAR_FEATURES), "--guided_matching"],
+        os.path.join(tmp, "match1.log"))
+    try:
+        # local_matching_worker's options, in this process
+        opts = FeaturePipelineOptions(batch_size=4, guided_matching=True)
+        opts.sift = sift.SiftOptions(max_num_features=PAR_FEATURES,
+                                     candidates_per_octave=min(
+                                         512, PAR_FEATURES), num_octaves=3)
+        cams = {i: cameras.make_simple_camera(i, PAR_W, PAR_H,
+                                              focal=PAR_FOCAL) for i in ids}
+        k1_before = _counts()["fused_matcher"]
+        mine = run_matching_worker(images, cams, jobs[:1], wd, host_id=0,
+                                   pipeline_options=opts, device=dev)
+        torch.cuda.synchronize()
+        k1_job = _counts()["fused_matcher"] - k1_before
+        secs["matching: in-process job"] = time.perf_counter() - t0
+        out = _finish_cli(worker, 600, "local_matching_worker 1")
+    finally:
+        _stop([worker])
+    secs["matching: both jobs"] = time.perf_counter() - t0
+    line = [ln for ln in out.splitlines() if "completed jobs" in ln][-1]
+    theirs = json.loads(line.split("completed jobs")[1])
+    t0 = time.perf_counter()
+    merged_db = os.path.join(tmp, "merged.db")
+    n_tvg = merge_matching_databases(wd, [j["job_id"] for j in jobs],
+                                     merged_db)
+    mcams, mimages, mgraph = FeaturePipeline(
+        {}, {}, device=dev).load_from_database(merged_db)
+    mgr = MapperController(mcams, mimages, mgraph, ControllerOptions(),
+                           device=dev).run()
+    torch.cuda.synchronize()
+    secs["matching: merge and map"] = time.perf_counter() - t0
+    best = max(mgr, key=lambda r: r.num_reg_images())
+    err = synthetic.pose_errors(best, sc)
+    print(f"  matching jobs on {card}: {len(pairs)} ring pairs (width "
+          f"{PAR_RING}) in jobs of {[len(j['pairs']) for j in jobs]} pairs; "
+          f"in process {mine} ({k1_job} K1 launches), {line}; "
+          f"{[ln for ln in out.splitlines() if 'peak' in ln]} (its K1 "
+          f"launches are not counted here); merged {len(mimages)} images, "
+          f"{n_tvg} two-view geometries; {len(mgr)} model(s), registered "
+          f"{err['num_reg']}/{PAR_IMAGES}, ATE {err['ate']:.6f}, rotation "
+          f"error mean {err['rot_err_deg_mean']:.6f} deg", flush=True)
+    if covered != pairs or len(mimages) != PAR_IMAGES \
+            or mine != [jobs[0]["job_id"]] \
+            or theirs != [j["job_id"] for j in jobs[1:]] \
+            or k1_job != math.ceil(len(jobs[0]["pairs"]) / MATCH_BATCH) \
+            or err["num_reg"] != PAR_IMAGES or err["ate"] >= 0.1:
+        raise AssertionError("parallel path: matching jobs out of limits")
+
+
+def _sharded_solves(dev, card: str, ctrl, ba_state, world: int,
+                    secs: dict) -> None:
+    """solve_sharded on the BA path's problem (1M observations, one
+    shard), D = 8 against D = 1 and two spawned ranks on the card at 12
+    cameras (rel 1e-9), and estimate_rotations_sharded on the distributed
+    path's final edges against estimate_rotations (0.05 deg)."""
+    from dagsfm_tpu_torch.estimation import rotation_averaging as ra
+    from dagsfm_tpu_torch.parallel import ba_sharded
+    from dagsfm_tpu_torch.scene import synthetic
+    from dagsfm_tpu_torch.sfm import bundle_adjustment as ba
+
+    pinhole, plain_its = ba_state
+    const = np.zeros(pinhole.image_qvec.shape[0], bool)
+    const[:2] = True
+    t0 = time.perf_counter()
+    prob, _ = ba_sharded.shard_problem(pinhole, 1, max_track_len=20,
+                                       const_image=const, device=dev)
+    torch.cuda.synchronize()
+    t_shard = time.perf_counter() - t0
+    iters = 5
+    t0 = time.perf_counter()
+    _, st = ba_sharded.solve_sharded(prob, ba.BAOptions(
+        max_iterations=iters, solver="iterative"))
+    torch.cuda.synchronize()
+    secs["sharded BA, 1M observations"] = t_solve = time.perf_counter() - t0
+    n_obs = int(prob.obs_mask.sum())
+    del prob
+    print(f"  sharded BA on {card}: {n_obs} observations kept (uniform "
+          f"decimation, T = 20), shard_problem {t_shard:.3f} s; {iters} LM "
+          f"iterations in {t_solve:.3f} s, {iters / t_solve:.3f} LM "
+          f"iterations/s (the plain PCG: {plain_its:.3f}), "
+          f"{st.cg_iterations / iters:.1f} CG iterations per LM step; cost "
+          f"{st.initial_cost:.6g} -> {st.final_cost:.6g}", flush=True)
+    if not st.final_cost < 0.2 * st.initial_cost:
+        raise AssertionError("parallel path: the sharded BA did not descend")
+
+    small = synthetic.to_scene_arrays(synthetic.generate(
+        synthetic.SyntheticSceneSpec(num_cameras=12, num_points=250,
+                                     pixel_noise=0.5, seed=3)), "cpu")
+    rng = np.random.default_rng(4)
+    small = small._replace(points_xyz=small.points_xyz + torch.as_tensor(
+        rng.normal(0, 0.05, tuple(small.points_xyz.shape))))
+    host = {k: v.numpy() for k, v in small._asdict().items()}
+    sopts = dict(max_iterations=5, solver="iterative")
+    t0 = time.perf_counter()
+    runs = {}
+    for D in (1, 8):
+        p_, pts = ba_sharded.shard_problem(small, D, device=dev)
+        o_, s_ = ba_sharded.solve_sharded(p_, ba.BAOptions(**sopts))
+        runs[D] = (o_.image_qvec.cpu().numpy(), o_.image_tvec.cpu().numpy(),
+                   ba_sharded.gather_points(o_, pts, len(host["points_xyz"])),
+                   np.array([s_.initial_cost, s_.final_cost]))
+    rel8 = _rel_err(runs[8], runs[1])
+    # NCCL refuses two ranks on one GPU ("invalid usage" at the first
+    # collective), so the two ranks on the one card name gloo, which takes
+    # CUDA tensors
+    print("  two ranks on one card: backend gloo on CUDA tensors (NCCL "
+          "refuses two ranks on one GPU)", flush=True)
+    two, error = _two_ranks(dev, host, 8, sopts)
+    if two is None:
+        raise AssertionError(f"parallel path: two gloo ranks: {error}")
+    rel2 = max(_rel_err(two[r], runs[1]) for r in (0, 1))
+    secs["sharded BA, 12 cameras, D = 1, 8 and two ranks"] = \
+        time.perf_counter() - t0
+    print(f"  sharded BA at 12 cameras on {card}: D = 8 on one rank against "
+          f"D = 1: largest relative difference {rel8:.3g}; two ranks "
+          f"(backend gloo, D = 8): {rel2:.3g}; cost "
+          f"{runs[1][3][0]:.6g} -> {runs[1][3][1]:.6g}", flush=True)
+    if not (rel8 < 1e-9 and rel2 < 1e-9):
+        raise AssertionError("parallel path: sharded solves disagree")
+
+    vg = ctrl.view_graph
+    vids = sorted(vg.nodes)
+    index = {v: k for k, v in enumerate(vids)}
+    edges = np.array([(index[i], index[j]) for (i, j) in vg.edges])
+    rels = np.stack([e.rotation for e in vg.edges.values()])
+    t0 = time.perf_counter()
+    R1 = ra.estimate_rotations(len(vids), edges, rels, device=dev)
+    t_ra1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    R2 = ra.estimate_rotations_sharded(len(vids), edges, rels, device=dev)
+    secs["sharded rotation averaging"] = t_ra2 = time.perf_counter() - t0
+    gap = max(_angle_deg(a, b) for a, b in zip(R1, R2))
+    print(f"  rotation averaging on {card}: {len(vids)} images, {len(edges)} "
+          f"edges; sharded (world size {world}, 1 shard) {t_ra2:.3f} s, "
+          f"one process {t_ra1:.3f} s; largest gap {gap:.3g} deg", flush=True)
+    if gap >= 0.05:
+        raise AssertionError("parallel path: sharded rotation averaging")
+
+
+def _stop(procs) -> None:
+    """Kill what is still running of `procs` (after a failure)."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        p.log_file.close()
 
 
 def entry_path(fp, dev, card: str) -> dict:
@@ -1345,8 +1816,8 @@ def main() -> int:
     if args.max_features != 8192:
         print(f"== pixel and distorted paths cut to max_num_features "
               f"{args.max_features} (default 8192)", flush=True)
-    print(f"== pixel path cut to {PIXEL_IMAGES} images (100 before the "
-          "distorted path joined)", flush=True)
+    print(f"== pixel path cut to {PIXEL_IMAGES} images (50 until the "
+          "parallel path joined, 100 before the distorted path)", flush=True)
     pixel, _ = pixel_path(dev, card, PIXEL_IMAGES, args.max_features)
     print(f"== distorted path cut to {DISTORTED_IMAGES} images (100 until "
           "the distributed path joined)", flush=True)
@@ -1359,12 +1830,14 @@ def main() -> int:
     if args.breakdown:
         _profile_5pt(dev, card)
     planted = main_path(dev, card, args.num_images, args.breakdown)
-    dist = distributed_path(dev, card)
+    dist, dist_state = distributed_path(dev, card)
     database = database_path(dev, card)
-    bapath = ba_path(dev, card)
+    bapath, ba_state = ba_path(dev, card)
+    parallel = parallel_path(dev, card, dist_state, ba_state)
+    del dist_state, ba_state
     paths = {"tool": tool, "planted": planted, "pixel": pixel,
              "distorted": distorted, "entry": entry, "distributed": dist,
-             "database": database, "ba": bapath}
+             "database": database, "ba": bapath, "parallel": parallel}
     for e, path in ((k1, "distorted"), (k2, "entry"), (k3, "entry"),
                     (k4, "tool")):
         e["launches"] = paths[path][e["name"]]

@@ -4,8 +4,9 @@ The JAX package `dagsfm_tpu` is the reference; this package mirrors its
 subpackages and module names so each counterpart sits at the same path.
 It imports `torch` and numpy only — never `jax`, never `dagsfm_tpu`.
 
-Ported so far (the per-cluster reconstruction from rendered pixels, and
-the distributed mapper around it, in one process):
+Ported so far (the per-cluster reconstruction from rendered pixels, the
+distributed mapper around it, COLMAP's database workflow, and the
+parallel layer):
   ops/       — rotations, polynomials, triangulation, epipolar (E, F, H),
                RANSAC with injectable sampling, Umeyama, P3P, EPnP,
                pose refinement, projection, E/F/H two-view classification,
@@ -28,8 +29,13 @@ the distributed mapper around it, in one process):
                cut-and-expand ImageClustering
   estimation/ — global rotation averaging (L1 + IRLS over a matrix-free
                CG)
-  pipeline/  — FeaturePipeline (extract + match + verify + mapper inputs)
-               and DistributedMapperController
+  pipeline/  — FeaturePipeline (extract + match + verify + mapper inputs),
+               DistributedMapperController, and the CLI
+               (`python -m dagsfm_tpu_torch <command>`, cli.py)
+  parallel/  — torch.distributed process groups (NCCL on the card, gloo
+               on the CPU), lease-coordinated mapping and matching jobs
+               for worker processes, clusters on threads, and the sharded
+               final BA and pair matching
   tools/     — matcher_mfu, the matcher's stage split on the card
   interop.py — turns the JAX package's state (numpy / dicts) into the
                port's containers

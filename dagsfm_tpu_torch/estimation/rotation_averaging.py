@@ -1,13 +1,14 @@
 """Robust global rotation averaging: L1 then IRLS over a matrix-free CG.
 
-Port of dagsfm_tpu/estimation/rotation_averaging.py (the sharded solve
-waits). Spanning-tree initialisation on the host, then on the device a
-fixed number of L1 and IRLS steps, each solving the graph Laplacian
-system (L ⊗ I₃) dω = b by 50 Jacobi-preconditioned CG steps whose
-mat-vec is two segment sums over the edge list. Every sum adds its
-terms in edge order (`bundle_adjustment._segment_sum`), so a run
-repeats to the bit on the card. Clamps, the 1e8 gauge pin on node 0 and
-the final re-anchor are the reference's.
+Port of dagsfm_tpu/estimation/rotation_averaging.py, with its
+edge-sharded solve over torch.distributed. Spanning-tree initialisation
+on the host, then on the device a fixed number of L1 and IRLS steps,
+each solving the graph Laplacian system (L ⊗ I₃) dω = b by 50
+Jacobi-preconditioned CG steps whose mat-vec is segment sums over the
+edge list. Every sum adds its terms in edge order
+(`bundle_adjustment._segment_sum`), so a run repeats to the bit on the
+card. Clamps, the 1e8 gauge pin on node 0 and the final re-anchor are
+the reference's.
 
 Convention (COLMAP): R_j = R_ij @ R_i with world-to-camera rotations.
 """
@@ -21,6 +22,8 @@ import torch
 
 from dagsfm_tpu_torch import device as devmod
 from dagsfm_tpu_torch.ops import rotations as rops
+from dagsfm_tpu_torch.parallel.mesh import (all_reduce, own_shards,
+                                            process_group)
 from dagsfm_tpu_torch.sfm.bundle_adjustment import _segment_sum, segments
 
 
@@ -55,15 +58,14 @@ def spanning_tree_init(num_images: int, edges: np.ndarray,
     return R
 
 
-def _solve_ra(R_init: torch.Tensor, edges: np.ndarray,
-              rel_rot: torch.Tensor, opts: RAOptions) -> torch.Tensor:
+def _solve_ra(R_init: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+              rel_rot: torch.Tensor, opts: RAOptions, seg_both, seg_diff,
+              emask: torch.Tensor | None = None) -> torch.Tensor:
+    """L1 then IRLS from R_init over the edges (src, dst). seg_both(v)
+    and seg_diff(v) are the (I, ...) sums over the whole edge list of v
+    at both endpoints, and of v at src minus v at dst; emask (E,) zeroes
+    the weights of padded edges."""
     I = R_init.shape[0]
-    dev = R_init.device
-    edges = np.asarray(edges, np.int64).reshape(-1, 2)
-    src = torch.as_tensor(edges[:, 0], device=dev)
-    dst = torch.as_tensor(edges[:, 1], device=dev)
-    by_src = segments(edges[:, 0], I, dev)
-    by_dst = segments(edges[:, 1], I, dev)
     q = rops.rotmat_to_quat(R_init)
     q_rel = rops.rotmat_to_quat(rel_rot)
 
@@ -76,17 +78,16 @@ def _solve_ra(R_init: torch.Tensor, edges: np.ndarray,
 
     def cg_solve(w, b):
         """(L ⊗ I3) x = b with L the weighted Laplacian, node 0 pinned."""
-        deg = _segment_sum(w, by_src) + _segment_sum(w, by_dst)
+        deg = seg_both(w)
         deg[0] += 1e8
         Minv = (1.0 / torch.clamp(deg, min=1e-12))[:, None]
 
         def matvec(x):
-            ws = w[:, None] * (x[src] - x[dst])
-            out = _segment_sum(ws, by_src) + _segment_sum(-ws, by_dst)
+            out = seg_diff(w[:, None] * (x[src] - x[dst]))
             out[0] += 1e8 * x[0]
             return out
 
-        x = torch.zeros((I, 3), dtype=b.dtype, device=dev)
+        x = torch.zeros((I, 3), dtype=b.dtype, device=b.device)
         r = b
         z = r * Minv
         p = z
@@ -103,19 +104,36 @@ def _solve_ra(R_init: torch.Tensor, edges: np.ndarray,
         return x
 
     def step(q, w):
-        we = w[:, None] * residuals(q)
-        b = -(_segment_sum(we, by_src) - _segment_sum(we, by_dst))
+        b = -seg_diff(w[:, None] * residuals(q))
         dq = rops.angleaxis_to_quat(cg_solve(w, b))
         return rops.quat_normalize(rops.quat_multiply(q, dq))
 
+    def masked(w):
+        return w if emask is None else emask * w
+
     for _ in range(opts.l1_iterations):
         nrm = torch.linalg.norm(residuals(q), dim=-1)
-        q = step(q, 1.0 / torch.clamp(nrm, min=1e-5))
+        q = step(q, masked(1.0 / torch.clamp(nrm, min=1e-5)))
     sigma2 = float(np.radians(opts.sigma_deg)) ** 2
     for _ in range(opts.irls_iterations):
         e = residuals(q)
-        q = step(q, (sigma2 / (torch.sum(e * e, -1) + sigma2)) ** 2)
+        q = step(q, masked((sigma2 / (torch.sum(e * e, -1) + sigma2)) ** 2))
     return rops.quat_to_rotmat(q)
+
+
+def _solve_ra_local(R_init: torch.Tensor, edges: np.ndarray,
+                    rel_rot: torch.Tensor, opts: RAOptions) -> torch.Tensor:
+    """`_solve_ra` over the whole edge list in this process: every sum
+    adds its terms in edge order."""
+    I, dev = R_init.shape[0], R_init.device
+    edges = np.asarray(edges, np.int64).reshape(-1, 2)
+    by_src = segments(edges[:, 0], I, dev)
+    by_dst = segments(edges[:, 1], I, dev)
+    return _solve_ra(
+        R_init, torch.as_tensor(edges[:, 0], device=dev),
+        torch.as_tensor(edges[:, 1], device=dev), rel_rot, opts,
+        lambda v: _segment_sum(v, by_src) + _segment_sum(v, by_dst),
+        lambda v: _segment_sum(v, by_src) + _segment_sum(-v, by_dst))
 
 
 def _reanchored(R: torch.Tensor) -> np.ndarray:
@@ -132,8 +150,8 @@ def estimate_rotations(num_images: int, edges: np.ndarray,
     rel_rot (E, 3, 3). Returns (I, 3, 3) with R[0] the identity gauge."""
     dev = devmod.resolve(device)
     R0 = spanning_tree_init(num_images, edges, rel_rot)
-    return _reanchored(_solve_ra(devmod.as_tensor(R0, dev), edges,
-                                 devmod.as_tensor(rel_rot, dev), opts))
+    return _reanchored(_solve_ra_local(devmod.as_tensor(R0, dev), edges,
+                                       devmod.as_tensor(rel_rot, dev), opts))
 
 
 def estimate_rotations_nonlinear(num_images: int, edges: np.ndarray,
@@ -148,8 +166,51 @@ def estimate_rotations_nonlinear(num_images: int, edges: np.ndarray,
         init = spanning_tree_init(num_images, edges, rel_rot)
     opts = RAOptions(l1_iterations=0, irls_iterations=iterations,
                      sigma_deg=1e9)
-    return _reanchored(_solve_ra(devmod.as_tensor(init, dev), edges,
-                                 devmod.as_tensor(rel_rot, dev), opts))
+    return _reanchored(_solve_ra_local(devmod.as_tensor(init, dev), edges,
+                                       devmod.as_tensor(rel_rot, dev), opts))
+
+
+def estimate_rotations_sharded(num_images: int, edges: np.ndarray,
+                               rel_rot: np.ndarray,
+                               opts: RAOptions = RAOptions(),
+                               num_shards: int | None = None,
+                               device=None) -> np.ndarray:
+    """Rotation averaging with the edges cut into `num_shards` shards
+    (default: one per rank), on `device` (the GPU unless "cpu" is asked).
+
+    The algorithm of estimate_rotations: the spanning-tree start (the
+    same on every rank), then L1 and IRLS. The edges are padded to a
+    multiple of D with masked identity edges on image 0 and cut into D
+    contiguous shards, shard d on rank d % W; every graph sum adds both
+    endpoints' terms in one segment sum over the rank's edges and makes
+    one all_reduce, as the reference's psum_seg_diff / psum_seg_both.
+    Returns (I, 3, 3) with R[0] the identity gauge."""
+    dev = devmod.resolve(device)
+    edges = np.asarray(edges, np.int64).reshape(-1, 2)
+    rel_rot = np.asarray(rel_rot, np.float64)
+    D = num_shards or process_group()[2]
+    E = len(edges)
+    pad = (-E) % D
+    edges_p = np.concatenate([edges, np.zeros((pad, 2), np.int64)])
+    rel_p = np.concatenate([rel_rot, np.tile(np.eye(3), (pad, 1, 1))])
+    emask = np.concatenate([np.ones(E), np.zeros(pad)])
+    Ed = (E + pad) // D
+    rows = np.concatenate([np.arange(d * Ed, (d + 1) * Ed)
+                           for d in own_shards(D)] or [np.zeros(0, int)])
+    src, dst = edges_p[rows, 0], edges_p[rows, 1]
+    by_both = segments(np.concatenate([src, dst]), num_images, dev)
+
+    def seg_both(v):
+        return all_reduce(_segment_sum(torch.cat([v, v]), by_both))
+
+    def seg_diff(v):
+        return all_reduce(_segment_sum(torch.cat([v, -v]), by_both))
+
+    R0 = spanning_tree_init(num_images, edges, rel_rot)
+    return _reanchored(_solve_ra(
+        devmod.as_tensor(R0, dev), torch.as_tensor(src, device=dev),
+        torch.as_tensor(dst, device=dev), devmod.as_tensor(rel_p[rows], dev),
+        opts, seg_both, seg_diff, devmod.as_tensor(emask[rows], dev)))
 
 
 def align_rotations(estimated: np.ndarray,

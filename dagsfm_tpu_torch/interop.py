@@ -23,6 +23,8 @@ from dagsfm_tpu_torch.features import sift
 from dagsfm_tpu_torch.features.matching import DescriptorBank, make_bank
 from dagsfm_tpu_torch.graph.view_graph import TwoViewEdge, ViewGraph
 from dagsfm_tpu_torch.ops import two_view_classify as tvc
+from dagsfm_tpu_torch.parallel.ba_sharded import (ShardedBAProblem,
+                                                  problem_from_numpy)
 from dagsfm_tpu_torch.pipeline.distributed_mapper import \
     DistributedMapperOptions
 from dagsfm_tpu_torch.pipeline.feature_pipeline import TwoViewRecord
@@ -57,6 +59,12 @@ def ba_problem(fields: dict, device=None) -> ba.BAProblem:
         f["cam_model_id"], f["cam_params"], f["points"],
         f["obs_image"][live], f["obs_point"][live], f["obs_xy"][live],
         f["const_image"], f["const_points"], f["cam_refine"], device=dev)
+
+
+def sharded_problem(fields: dict, device=None) -> ShardedBAProblem:
+    """Port ShardedBAProblem from the reference's
+    `ShardedBAProblem._asdict()` (the same shards, arrays and dtypes)."""
+    return problem_from_numpy(fields, devmod.resolve(device))
 
 
 def camera(c) -> cm.Camera:
@@ -204,12 +212,8 @@ def controller_options(fields: dict) -> ControllerOptions:
 def distributed_mapper_options(fields: dict) -> DistributedMapperOptions:
     """DistributedMapperOptions from the reference's
     `dataclasses.asdict(...)` (nested options as dicts or NamedTuples).
-    The sharded final BA's device count is not ported, so setting it
-    raises."""
+    `num_devices` stays the sharded final BA's number of shards."""
     f = dict(fields)
-    if f.pop("num_devices", None) is not None:
-        raise ValueError("num_devices is read only by the sharded final BA "
-                         "(parallel/ba_sharded.py), which is not ported")
     nested = {"clustering": ClusteringOptions, "ra_options": RAOptions,
               "track_selection": TrackSelectionOptions,
               "aligner": AlignerOptions, "mapper": MapperOptions}

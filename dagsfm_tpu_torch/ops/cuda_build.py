@@ -5,7 +5,9 @@ plain C interface, named by the hash of its source and of every header in
 `csrc/` (so editing a shared header rebuilds every library), kept in
 `build/` at the root of the checkout and loaded with ctypes. `load` builds
 every missing library it is asked for at once, one nvcc process per source,
-all started together, and waits for them.
+all started together, and waits for them. Threads that load at once
+take turns; processes that build at once each write a temp file and
+rename it into place.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -23,6 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 build_info: dict = {}   # name -> {"path", "rebuilt", "seconds", "ptxas"}
 _libs: dict = {}
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -52,6 +56,11 @@ def _so_path(name: str) -> Path:
 def load(*names: str) -> dict:
     """name -> ctypes.CDLL for each csrc/<name>.cu, building those whose
     source and header hash has no library yet, in parallel."""
+    with _lock:
+        return _load(names)
+
+
+def _load(names) -> dict:
     todo = [n for n in names if n not in _libs]
     t0 = time.perf_counter()
     procs = {}

@@ -1,0 +1,164 @@
+"""Command-line interface: `python -m dagsfm_tpu_torch <command>`.
+
+Port of dagsfm_tpu/pipeline/cli.py, with the JAX package's flag names
+and result lines. Ported so far are the commands of the parallel layer:
+
+  local_sfm_worker       claim cluster jobs from a work_dir and map them
+  local_matching_worker  claim matching jobs from a work_dir: extract,
+                         match and verify each into its own database
+  distributed_mapper     the whole graph-partitioned pipeline from a
+                         database (--distributed 1: the sharded final BA)
+
+Every command takes `--device` (default `cuda`; `cpu` runs on the CPU).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+
+
+def cmd_local_sfm_worker(args):
+    """Worker process: claim the cluster jobs of work_dir/clusters.json by
+    lease, map each and publish it as work_dir/partition<k>/."""
+    from dagsfm_tpu_torch.parallel.distributed import run_worker
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import FeaturePipeline
+    fp = FeaturePipeline({}, {}, device=args.device,
+                         database_path=args.database_path)
+    cams, images, graph = fp.load_from_database(args.database_path)
+    with open(os.path.join(args.work_dir, "clusters.json")) as f:
+        clusters = json.load(f)
+    done = run_worker(cams, images, graph, clusters, args.work_dir,
+                      host_id=args.host_id,
+                      lease_timeout_s=args.lease_timeout, device=args.device)
+    print(f"worker {args.host_id}: completed clusters {done}")
+    _print_peak_memory(args.device)
+
+
+def cmd_local_matching_worker(args):
+    """Worker process: claim the matching jobs of
+    work_dir/matching_jobs.json (`make_matching_jobs`) by lease; extract,
+    match and verify each job's pairs into work_dir/matches<k>.db. Images
+    are grayscale arrays in --image_path/image<id>.npy."""
+    from dagsfm_tpu_torch.features import sift
+    from dagsfm_tpu_torch.parallel.distributed import run_matching_worker
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import \
+        FeaturePipelineOptions
+    from dagsfm_tpu_torch.scene import cameras as cm
+
+    with open(os.path.join(args.work_dir, "matching_jobs.json")) as f:
+        jobs = json.load(f)
+    images, cams = {}, {}
+    for i in sorted({i for j in jobs for i in j["image_ids"]}):
+        img = np.load(os.path.join(args.image_path, f"image{i}.npy"))
+        images[i] = img
+        cams[i] = cm.make_simple_camera(
+            i, img.shape[1], img.shape[0],
+            focal=args.focal if args.focal > 0 else None)
+    opts = FeaturePipelineOptions(batch_size=args.batch_size,
+                                  guided_matching=args.guided_matching)
+    if args.max_num_features > 0:
+        opts.sift = sift.SiftOptions(
+            max_num_features=args.max_num_features,
+            candidates_per_octave=min(512, args.max_num_features),
+            num_octaves=3)
+    done = run_matching_worker(images, cams, jobs, args.work_dir,
+                               host_id=args.host_id, pipeline_options=opts,
+                               lease_timeout_s=args.lease_timeout,
+                               device=args.device)
+    print(f"matching worker {args.host_id}: completed jobs {done}")
+    _print_peak_memory(args.device)
+
+
+def _print_peak_memory(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        print(f"peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+
+def cmd_distributed_mapper(args):
+    """The graph-partitioned pipeline on a database's features and
+    two-view geometries, the model written to --output_path."""
+    from dagsfm_tpu_torch.clustering.image_clustering import \
+        ClusteringOptions
+    from dagsfm_tpu_torch.pipeline.distributed_mapper import (
+        DistributedMapperController, DistributedMapperOptions)
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import (
+        FeaturePipeline, load_two_view_geometries_from_database)
+    from dagsfm_tpu_torch.scene import io as scene_io
+    fp = FeaturePipeline({}, {}, device=args.device,
+                         database_path=args.database_path)
+    cams, images, graph = fp.load_from_database(args.database_path)
+    two_view = load_two_view_geometries_from_database(args.database_path,
+                                                      device=args.device)
+    opts = DistributedMapperOptions(
+        clustering=ClusteringOptions(
+            num_images_ub=args.num_images_ub,
+            completeness_ratio=args.completeness_ratio,
+            relax_ratio=args.relax_ratio,
+            image_overlap=args.image_overlap,
+            cluster_type=args.cluster_type),
+        distributed_final_ba=bool(args.distributed),
+        retriangulate=bool(args.retriangulate),
+        final_ba=bool(args.final_ba))
+    ctrl = DistributedMapperController(cams, images, graph, opts,
+                                       two_view_geometries=two_view,
+                                       device=args.device)
+    rec = ctrl.run()
+    os.makedirs(args.output_path, exist_ok=True)
+    scene_io.write_model_bin(rec, args.output_path)
+    print(ctrl.report())
+    print(f"registered {rec.num_reg_images()}/{len(images)} images, "
+          f"{rec.num_points3D()} points -> {args.output_path}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="dagsfm_tpu_torch",
+        description="Distributed Structure-from-Motion on PyTorch / CUDA")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    def add(name, fn, flags):
+        sp = sub.add_parser(name)
+        for f, kw in flags + [("--device", dict(default="cuda"))]:
+            sp.add_argument(f, **kw)
+        sp.set_defaults(func=fn)
+
+    add("distributed_mapper", cmd_distributed_mapper, [
+        ("--database_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+        ("--num_images_ub", dict(type=int, default=100)),
+        ("--completeness_ratio", dict(type=float, default=0.5)),
+        ("--relax_ratio", dict(type=float, default=1.3)),
+        ("--image_overlap", dict(type=int, default=50)),
+        ("--cluster_type", dict(default="SPECTRAL")),
+        ("--distributed", dict(type=int, default=0)),
+        ("--retriangulate", dict(type=int, default=0)),
+        ("--final_ba", dict(type=int, default=1)),
+    ])
+    add("local_sfm_worker", cmd_local_sfm_worker, [
+        ("--database_path", dict(required=True)),
+        ("--work_dir", dict(required=True)),
+        ("--host_id", dict(type=int, default=0)),
+        ("--lease_timeout", dict(type=float, default=3600.0)),
+    ])
+    add("local_matching_worker", cmd_local_matching_worker, [
+        ("--image_path", dict(required=True)),
+        ("--work_dir", dict(required=True)),
+        ("--host_id", dict(type=int, default=0)),
+        ("--focal", dict(type=float, default=-1.0)),
+        ("--batch_size", dict(type=int, default=4)),
+        ("--max_num_features", dict(type=int, default=1024)),
+        ("--guided_matching", dict(action="store_true")),
+        ("--lease_timeout", dict(type=float, default=3600.0)),
+    ])
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    args.func(args)

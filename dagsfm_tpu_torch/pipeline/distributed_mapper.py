@@ -1,7 +1,6 @@
 """DistributedMapperController: the whole graph-partitioned SfM pipeline.
 
-Port of dagsfm_tpu/pipeline/distributed_mapper.py, with the clusters run
-in sequence in one process:
+Port of dagsfm_tpu/pipeline/distributed_mapper.py:
 
     verified matches -> view graph (two-view geometry per pair)
     -> triplet rotation-cycle filter (5 deg) + largest component
@@ -13,9 +12,13 @@ in sequence in one process:
     -> final global BA with track selection
 
 Every stage runs on the controller's device (the GPU unless "cpu" is
-asked for). Clusters in parallel threads and the final BA sharded over
-devices belong to the parallel layer, which is not ported: those options
-raise NotImplementedError.
+asked for). Clusters may run in threads (`reconstruct_partitions(
+num_threads)`), or in worker processes that claim the jobs of
+`export_cluster_jobs` (parallel/distributed.py) and whose partitions
+`run(checkpoint_path)` merges. With `distributed_final_ba` the final BA
+cuts the points into `num_devices` shards (default: one per rank of the
+process group) and solves them with parallel/ba_sharded.py; as in the
+reference, that solve ignores the track selection.
 """
 
 from __future__ import annotations
@@ -35,6 +38,10 @@ from dagsfm_tpu_torch.estimation import rotation_averaging as ra
 from dagsfm_tpu_torch.graph.view_graph import TwoViewEdge, ViewGraph
 from dagsfm_tpu_torch.ops import rotations as rops
 from dagsfm_tpu_torch.ops import two_view_classify as tvc
+from dagsfm_tpu_torch.parallel import ba_sharded
+from dagsfm_tpu_torch.parallel.distributed import (cluster_inputs,
+                                                   run_clusters_threaded)
+from dagsfm_tpu_torch.parallel.mesh import process_group
 from dagsfm_tpu_torch.scene import cameras as cm
 from dagsfm_tpu_torch.scene import io as scene_io
 from dagsfm_tpu_torch.scene.reconstruction import Reconstruction
@@ -62,7 +69,8 @@ class DistributedMapperOptions:
     final_ba: bool = True
     retriangulate: bool = False
     final_ba_iterations: int = 50
-    distributed_final_ba: bool = False    # needs the parallel layer
+    distributed_final_ba: bool = False    # shard the final BA
+    num_devices: int | None = None        # its shards; None: the ranks
     seed: int = 0
 
 
@@ -192,14 +200,8 @@ class DistributedMapperController:
 
     # ------------------------------------- 4. per-cluster reconstruction
     def _reconstruct_one_cluster(self, cluster):
-        sub_graph = CorrespondenceGraph()
-        idset = set(cluster.image_ids)
-        for i in cluster.image_ids:
-            sub_graph.add_image(i, self.graph.num_keypoints[i])
-        for (i, j), m in self.graph.pair_matches.items():
-            if i in idset and j in idset:
-                sub_graph.add_matches(i, j, m)
-        sub_images = {i: self.images[i] for i in cluster.image_ids}
+        sub_images, sub_graph = cluster_inputs(self.images, self.graph,
+                                               cluster.image_ids)
         # every cluster starts from the shared cameras: a mapper writes
         # refined intrinsics into its own model only
         rec = IncrementalMapper(self.cameras, sub_images, sub_graph,
@@ -211,16 +213,17 @@ class DistributedMapperController:
 
     def reconstruct_partitions(self, num_threads: int = 1):
         """Incremental SfM per cluster, biggest cluster first (a stable
-        sort by size)."""
-        if num_threads > 1:
-            raise NotImplementedError(
-                "num_threads > 1 needs parallel/distributed.py, which is "
-                "not ported")
+        sort by size); with num_threads > 1 on a pool of threads, which
+        gives the same models."""
         t0 = time.time()
         order = sorted(range(len(self.clusters)),
                        key=lambda c: -len(self.clusters[c].image_ids))
-        recs = [self._reconstruct_one_cluster(self.clusters[c])
-                for c in order]
+        jobs = [self.clusters[c] for c in order]
+        if num_threads > 1:
+            recs = run_clusters_threaded(jobs, self._reconstruct_one_cluster,
+                                         max_workers=num_threads)
+        else:
+            recs = [self._reconstruct_one_cluster(c) for c in jobs]
         self.local_recons = [r for r in recs if r.num_reg_images() >= 2]
         # registered images per local model (the merge grows the anchor's)
         self.local_reg_images = [r.num_reg_images() for r in recs]
@@ -256,30 +259,40 @@ class DistributedMapperController:
         self.timings["retriangulation"] = time.time() - t0
 
     def adjust_global_bundle(self, merged: Reconstruction):
-        """Final BA: the selected tracks free and the others held
-        constant, the first two images pinned, Cauchy loss of scale 1 px,
-        at most final_ba_iterations LM steps."""
-        if self.opts.distributed_final_ba:
-            raise NotImplementedError(
-                "distributed_final_ba needs parallel/ba_sharded.py, which "
-                "is not ported")
+        """Final BA: the first two images pinned, Cauchy loss of scale 1
+        px, final_ba_iterations LM steps. In one process the selected
+        tracks are free and the others held constant (and the loop may
+        stop early); sharded, every track is free and every iteration
+        runs, as in the reference."""
         t0 = time.time()
-        const_points = None
-        if self.opts.select_tracks_for_bundle_adjustment:
-            sel = select_tracks(merged, self.opts.track_selection)
-        arrays, ids = merged.to_arrays(self.device)
-        if self.opts.select_tracks_for_bundle_adjustment:
-            const_points = np.array([p not in sel for p in ids[2]], bool)
-        const_image = np.zeros(len(ids[1]), bool)
-        const_image[:2] = True
-        prob = ba.make_problem(arrays, const_image=const_image,
-                               const_points=const_points)
         opts = ba.BAOptions(max_iterations=self.opts.final_ba_iterations,
                             loss="cauchy", loss_scale=1.0)
-        prob, self.ba_stats = ba.solve(prob, opts)
+        select = self.opts.select_tracks_for_bundle_adjustment and \
+            not self.opts.distributed_final_ba
+        if select:
+            sel = select_tracks(merged, self.opts.track_selection)
+        arrays, ids = merged.to_arrays(self.device)
+        const_image = np.zeros(len(ids[1]), bool)
+        const_image[:2] = True
+        if self.opts.distributed_final_ba:
+            D = self.opts.num_devices or process_group()[2]
+            prob, shard_pts = ba_sharded.shard_problem(
+                arrays, D, const_image=const_image, device=self.device)
+            prob, self.ba_stats = ba_sharded.solve_sharded(prob, opts)
+            points = torch.as_tensor(ba_sharded.gather_points(
+                prob, shard_pts, len(ids[2])), device=self.device)
+        else:
+            const_points = None
+            if select:
+                const_points = np.array([p not in sel for p in ids[2]],
+                                        bool)
+            prob = ba.make_problem(arrays, const_image=const_image,
+                                   const_points=const_points)
+            prob, self.ba_stats = ba.solve(prob, opts)
+            points = prob.points
         merged.update_from_arrays(arrays._replace(
             image_qvec=prob.image_qvec, image_tvec=prob.image_tvec,
-            points_xyz=prob.points), ids)
+            points_xyz=points), ids)
         self.timings["final_ba"] = time.time() - t0
 
     def separator_rmse(self, merged: Reconstruction) -> float:

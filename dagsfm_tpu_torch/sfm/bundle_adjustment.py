@@ -486,16 +486,19 @@ def _solve_dense_joint(prob: BAProblem, pairs: Pairs, r_w, Jc_w, Jp_w, Jg_w,
     return dcam * free_p[:, None], dint, dpt
 
 
-def _pcg(S_mv, precond, b: tuple, x0: tuple, opts: BAOptions):
+def _pcg(S_mv, precond, b: tuple, x0: tuple | None, opts: BAOptions):
     """Preconditioned CG on a system of several blocks (tuples of
-    tensors), stopping at |r| <= linear_rtol |b| or after
-    max_linear_iterations. Returns (x, iterations)."""
+    tensors), from x0 (None: zero), stopping at |r| <= linear_rtol |b| or
+    after max_linear_iterations. Returns (x, iterations)."""
     def dot(a, c):
         return sum(torch.sum(u * w) for u, w in zip(a, c))
 
     tol = opts.linear_rtol * torch.clamp(torch.sqrt(dot(b, b)), min=1e-30)
-    x = x0
-    r = tuple(u - w for u, w in zip(b, S_mv(*x0)))
+    if x0 is None:
+        x, r = tuple(torch.zeros_like(u) for u in b), b
+    else:
+        x = x0
+        r = tuple(u - w for u, w in zip(b, S_mv(*x0)))
     z = precond(*r)
     p, rz = z, dot(r, z)
     k = 0
@@ -525,33 +528,42 @@ def _block_inverse(S: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
     return lin.solve_or_nan(S, eye.expand(S.shape))
 
 
+def _no_reduce(*xs):
+    return xs
+
+
 def _solve_iterative(prob: BAProblem, r_w, Jc_w, Jp_w, lam: float,
-                     opts: BAOptions, x_init):
+                     opts: BAOptions, x_init, reduce=_no_reduce):
     """ITERATIVE_SCHUR: SCHUR_JACOBI-preconditioned CG on the reduced
-    camera system, S·x = U x - W V⁻¹ Wᵀ x never formed. Returns (dcam,
-    dpt, CG iterations)."""
+    camera system, S·x = U x - W V⁻¹ Wᵀ x never formed, from x_init
+    (None: zero). `reduce` sums per-image blocks over the processes that
+    hold the other observations (the sharded solve; one call before the
+    CG and one per CG iteration). Returns (dcam, dpt, CG iterations)."""
     dt = r_w.dtype
     oi, op = prob.obs_image, prob.obs_point
     free = (~prob.const_image).to(dt)[:, None]
     JcT = Jc_w.transpose(1, 2)
-    Ud = _damp(_segment_sum(JcT @ Jc_w, prob.by_image), lam)
-    gc = -_segment_sum(_mv(JcT, r_w), prob.by_image)
     gp, Vinv = _point_blocks(prob, r_w, Jp_w, lam, opts)
     W = JcT @ Jp_w
     WVinv = W @ Vinv[op]
-    b = (gc - _segment_sum(_mv(W, _mv(Vinv, gp)[op]), prob.by_image)) * free
-    Minv = _block_inverse(
-        Ud - _segment_sum(WVinv @ W.transpose(1, 2), prob.by_image),
-        free.expand(-1, 6))
+    U, gc, corr, B = reduce(
+        _segment_sum(JcT @ Jc_w, prob.by_image),
+        _segment_sum(_mv(JcT, r_w), prob.by_image),
+        _segment_sum(_mv(W, _mv(Vinv, gp)[op]), prob.by_image),
+        _segment_sum(WVinv @ W.transpose(1, 2), prob.by_image))
+    Ud = _damp(U, lam)
+    b = (-gc - corr) * free
+    Minv = _block_inverse(Ud - B, free.expand(-1, 6))
 
     def S_mv(x):
         xm = x * free
         y = _mv(Vinv, _segment_sum(_mtv(W, xm[oi]), prob.by_point))
-        Sx = _mv(Ud, xm) - _segment_sum(_mv(W, y[op]), prob.by_image)
+        z, = reduce(_segment_sum(_mv(W, y[op]), prob.by_image))
+        Sx = _mv(Ud, xm) - z
         return (Sx * free + x * (1.0 - free),)
 
     (dcam,), k = _pcg(S_mv, lambda v: (_mv(Minv, v),), (b,),
-                      (x_init * free,), opts)
+                      None if x_init is None else (x_init * free,), opts)
     dcam = dcam * free
     wtd = _segment_sum(_mtv(W, dcam[oi]), prob.by_point)
     dpt = _mv(Vinv, gp - wtd) * (~prob.const_points)[:, None].to(dt)
@@ -559,13 +571,15 @@ def _solve_iterative(prob: BAProblem, r_w, Jc_w, Jp_w, lam: float,
 
 
 def _solve_iterative_joint(prob: BAProblem, r_w, Jc_w, Jp_w, Jg_w,
-                           lam: float, opts: BAOptions, x_init):
+                           lam: float, opts: BAOptions, x_init,
+                           reduce=_no_reduce):
     """ITERATIVE_SCHUR with intrinsics: PCG on the joint camera-side
     system, its SCHUR_JACOBI preconditioner the pose blocks and the
     intrinsics blocks (their coupling dropped from the preconditioner
-    only). CG starts from the previous LM step's poses and zero
-    intrinsics, as the reference. Returns (dcam, dint, dpt, CG
-    iterations)."""
+    only). CG starts from x_init's poses (None: zero) and zero
+    intrinsics, as the reference. `reduce` as in `_solve_iterative`: the
+    per-image blocks are summed over processes before they are folded
+    into cameras. Returns (dcam, dint, dpt, CG iterations)."""
     dt = r_w.dtype
     oi, op, oc = prob.obs_image, prob.obs_point, prob.obs_cam
     camidx = prob.image_camidx
@@ -576,39 +590,38 @@ def _solve_iterative_joint(prob: BAProblem, r_w, Jc_w, Jp_w, Jg_w,
         return _segment_sum(z_img, prob.img_by_cam)
 
     JcT, JgT = Jc_w.transpose(1, 2), Jg_w.transpose(1, 2)
-    U_ppd = _damp(_segment_sum(JcT @ Jc_w, prob.by_image), lam)
-    U_ggd = _damp(fold(_segment_sum(JgT @ Jg_w, prob.by_image)), lam)
-    U_pg = _segment_sum(JcT @ Jg_w, prob.by_image)            # (I, 6, G)
-    gc = -_segment_sum(_mv(JcT, r_w), prob.by_image)
-    gg = -fold(_segment_sum(_mv(JgT, r_w), prob.by_image))
     gp, Vinv = _point_blocks(prob, r_w, Jp_w, lam, opts)
     Wc, Wg = JcT @ Jp_w, JgT @ Jp_w
     Vo, gpo = Vinv[op], gp[op]
     WcVinv, WgVinv = Wc @ Vo, Wg @ Vo
-    b_p = (gc - _segment_sum(_mv(WcVinv, gpo), prob.by_image)) * free
-    b_g = (gg - fold(_segment_sum(_mv(WgVinv, gpo), prob.by_image))) * gfree
-    Minv_p = _block_inverse(
-        U_ppd - _segment_sum(WcVinv @ Wc.transpose(1, 2), prob.by_image),
-        free.expand(-1, 6))
-    Minv_g = _block_inverse(
-        U_ggd - fold(_segment_sum(WgVinv @ Wg.transpose(1, 2),
-                                  prob.by_image)), gfree)
+    U_pp, U_gg, U_pg, gc, gg, corr_p, corr_g, B_p, B_g = reduce(*(
+        _segment_sum(x, prob.by_image) for x in (
+            JcT @ Jc_w, JgT @ Jg_w, JcT @ Jg_w, _mv(JcT, r_w),
+            _mv(JgT, r_w), _mv(WcVinv, gpo), _mv(WgVinv, gpo),
+            WcVinv @ Wc.transpose(1, 2), WgVinv @ Wg.transpose(1, 2))))
+    U_ppd = _damp(U_pp, lam)
+    U_ggd = _damp(fold(U_gg), lam)                           # (C, G, G)
+    b_p = (-gc - corr_p) * free
+    b_g = (-fold(gg) - fold(corr_g)) * gfree
+    Minv_p = _block_inverse(U_ppd - B_p, free.expand(-1, 6))
+    Minv_g = _block_inverse(U_ggd - fold(B_g), gfree)
 
     def S_mv(xp, xg):
         xpm, xgm = xp * free, xg * gfree
         tmp = _segment_sum(_mtv(Wc, xpm[oi]) + _mtv(Wg, xgm[oc]),
                            prob.by_point)
         yo = _mv(Vinv, tmp)[op]
-        Sxp = _mv(U_ppd, xpm) + _mv(U_pg, xgm[camidx]) - \
-            _segment_sum(_mv(Wc, yo), prob.by_image)
-        Sxg = _mv(U_ggd, xgm) + fold(_mtv(U_pg, xpm)) - \
-            fold(_segment_sum(_mv(Wg, yo), prob.by_image))
+        zc, zg = reduce(_segment_sum(_mv(Wc, yo), prob.by_image),
+                        _segment_sum(_mv(Wg, yo), prob.by_image))
+        Sxp = _mv(U_ppd, xpm) + _mv(U_pg, xgm[camidx]) - zc
+        Sxg = _mv(U_ggd, xgm) + fold(_mtv(U_pg, xpm)) - fold(zg)
         return (Sxp * free + xp * (1.0 - free),
                 Sxg * gfree + xg * (1.0 - gfree))
 
     (dcam, dint), k = _pcg(
         S_mv, lambda vp, vg: (_mv(Minv_p, vp), _mv(Minv_g, vg)), (b_p, b_g),
-        (x_init * free, torch.zeros_like(b_g)), opts)
+        None if x_init is None else (x_init * free, torch.zeros_like(b_g)),
+        opts)
     dcam, dint = dcam * free, dint * gfree
     wtd = _segment_sum(_mtv(Wc, dcam[oi]) + _mtv(Wg, dint[oc]),
                        prob.by_point)

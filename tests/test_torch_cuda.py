@@ -658,3 +658,116 @@ def test_pose_edges_from_a_database_on_the_card_equal_the_cpu(cuda,
         assert a[k][2:] == (ninl, config)
         np.testing.assert_allclose(a[k][0], R, rtol=1e-9, atol=1e-12)
         np.testing.assert_allclose(a[k][1], t, rtol=1e-9, atol=1e-12)
+
+
+def test_threaded_clusters_equal_sequential_on_the_card(cuda):
+    """The controller's clusters mapped on two threads on the card (one
+    default stream, a torch.Generator per mapper) give the sequential
+    run's local models to the bit."""
+    from dagsfm_tpu_torch.clustering.image_clustering import \
+        ClusteringOptions
+    from dagsfm_tpu_torch.pipeline import distributed_mapper as t_dm
+    from dagsfm_tpu_torch.sfm.incremental_mapper import MapperOptions
+    sc, problem = _distributed_problem()
+    opts = t_dm.DistributedMapperOptions(
+        clustering=ClusteringOptions(num_images_ub=10, image_overlap=6),
+        mapper=MapperOptions(init_min_num_inliers=30,
+                             num_ransac_hypotheses=256, seed=11), seed=5)
+    ctrl = t_dm.DistributedMapperController(*problem, opts, device=cuda)
+    ctrl.build_view_graph()
+    ctrl.filter_and_average_rotations()
+    ctrl.cluster_scenes()
+    seq = ctrl.reconstruct_partitions()
+    thr = ctrl.reconstruct_partitions(num_threads=2)
+    assert len(seq) == len(thr) >= 2
+    for a, b in zip(seq, thr):
+        _same_bits(a, b)
+
+
+def _sharded_scene(cuda):
+    from dagsfm_tpu_torch.ops import rotations as t_rops
+    sc = t_syn.generate(t_syn.SyntheticSceneSpec(
+        num_cameras=12, num_points=250, pixel_noise=0.5, seed=3))
+    arrays = t_syn.to_scene_arrays(sc, cuda)
+    rng = np.random.default_rng(4)
+    dq = t_rops.angleaxis_to_quat(torch.as_tensor(
+        rng.normal(0, 0.01, (12, 3)), device=cuda))
+    q = t_rops.quat_multiply(dq, arrays.image_qvec)
+    q[:2] = arrays.image_qvec[:2]
+    return arrays._replace(image_qvec=q, points_xyz=arrays.points_xyz
+                           + torch.as_tensor(rng.normal(0, 0.05, tuple(
+                               arrays.points_xyz.shape)), device=cuda))
+
+
+@pytest.mark.parametrize("solver", ["dense", "iterative"])
+def test_sharded_ba_eight_shards_equal_one_on_the_card(cuda, solver):
+    """solve_sharded on one rank with D = 8 against D = 1 on the card,
+    and against the CPU, to rel 1e-9."""
+    from dagsfm_tpu_torch.parallel import ba_sharded as t_bs
+    from dagsfm_tpu_torch.sfm import bundle_adjustment as t_ba
+    arrays = _sharded_scene(cuda)
+    opts = t_ba.BAOptions(max_iterations=4, solver=solver)
+    runs = []
+    for D, dev in ((1, cuda), (8, cuda), (8, "cpu")):
+        prob, pts = t_bs.shard_problem(arrays, D, device=dev)
+        out, st = t_bs.solve_sharded(prob, opts)
+        runs.append((out.image_qvec.cpu().numpy(),
+                     out.image_tvec.cpu().numpy(),
+                     t_bs.gather_points(out, pts, arrays.points_xyz.shape[0]),
+                     np.array([st.initial_cost, st.final_cost])))
+    assert runs[0][3][1] < 0.5 * runs[0][3][0]
+    for other in runs[1:]:
+        for a, b in zip(other, runs[0]):
+            np.testing.assert_allclose(a, b, rtol=1e-9,
+                                       atol=1e-9 * np.abs(b).max())
+
+
+def test_sharded_rotation_averaging_on_the_card(cuda):
+    """estimate_rotations_sharded on the card with D = 8 and D = 1 equals
+    the CPU's and the one-process solve to rel 1e-9."""
+    from dagsfm_tpu_torch.estimation import rotation_averaging as t_ra
+    edges, rels = _ra_problem(40, 3)
+    whole = t_ra.estimate_rotations(40, edges, rels, device="cpu")
+    for D in (1, 8):
+        a = t_ra.estimate_rotations_sharded(40, edges, rels, num_shards=D,
+                                            device=cuda)
+        b = t_ra.estimate_rotations_sharded(40, edges, rels, num_shards=D,
+                                            device="cpu")
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(a, whole, rtol=1e-9, atol=1e-9)
+
+
+def test_parallel_entry_points_default_to_the_card(cuda, tmp_path):
+    """The parallel layer's entry points run on the card when no device is
+    named: their tensors and their results come from it."""
+    from dagsfm_tpu_torch import interop
+    from dagsfm_tpu_torch.estimation import rotation_averaging as t_ra
+    from dagsfm_tpu_torch.parallel import ba_sharded as t_bs
+    from dagsfm_tpu_torch.parallel import distributed as t_dist
+    from dagsfm_tpu_torch.parallel import matching_sharded as t_ms
+    arrays = _sharded_scene(cuda)
+    prob, _ = t_bs.shard_problem(arrays, 2)
+    assert all(getattr(prob, f).is_cuda for f in prob._fields)
+    back = interop.sharded_problem({f: getattr(prob, f).cpu().numpy()
+                                    for f in prob._fields})
+    assert all(torch.equal(getattr(back, f), getattr(prob, f))
+               for f in prob._fields)
+    edges, rels = _ra_problem(12, 5)
+    np.testing.assert_allclose(
+        t_ra.estimate_rotations_sharded(12, edges, rels),
+        t_ra.estimate_rotations_sharded(12, edges, rels, device="cpu"),
+        rtol=1e-9, atol=1e-9)
+    d1, _, m1, _ = planted_pairs(4, 64, seed=1, device="cpu")
+    descs = {i: d1[i].float().numpy() for i in range(4)}
+    masks = {i: m1[i].numpy() for i in range(4)}
+    pairs = [(0, 1), (1, 2), (2, 3)]
+    a = t_ms.match_pairs_sharded(descs, masks, pairs, num_shards=2)
+    b = t_ms.match_pairs_sharded(descs, masks, pairs, num_shards=2,
+                                 device="cpu")
+    assert all(np.array_equal(a[p], b[p]) for p in pairs)
+    ring = sorted((min(i, i % 12 + 1), max(i, i % 12 + 1))
+                  for i in range(1, 13))
+    jobs = t_dist.make_matching_jobs(ring, 2)
+    assert len(jobs) == 2 and sorted(tuple(p) for j in jobs
+                                     for p in j["pairs"]) == ring
+    assert t_dist.init_multihost() == (0, 1)

@@ -3,8 +3,9 @@ tests/test_pipeline.py's fixture (24 cameras, 5 % outlier matches, seed
 17, clusters of at most 10), through both view-graph branches and held
 to that test's limits; the partitions' export and resume, the cluster
 jobs, report(), the options carried from the JAX package, and the
-parallel-layer options that raise. Stage-by-stage parity with the JAX
-package is in tests/test_torch_distributed_stages.py.
+parallel layer's options (clusters in threads, the sharded final BA).
+Stage-by-stage parity with the JAX package is in
+tests/test_torch_distributed_stages.py.
 
 The match-graph branch classifies every pair with E/F/H RANSAC; here it
 draws 32 hypotheses per model (about 13 s on one CPU thread), its slow
@@ -190,15 +191,50 @@ def test_retriangulation_keeps_the_limits(problem, two_view_run):
     assert ctrl.separator_rmse(merged) < 2.0
 
 
-def test_parallel_layer_options_raise(problem):
-    _, (cams, images, graph) = problem
+def test_parallel_layer_options_raise(problem, two_view_run):
+    """(Named when these options raised; the parallel layer now runs
+    them.) Clusters mapped on two threads are the sequential run's local
+    models to the bit, and the sharded final BA (8 shards, one rank)
+    keeps tests/test_pipeline.py's limits."""
+    sc, (cams, images, graph) = problem
     ctrl = t_dm.DistributedMapperController(
-        cams, images, graph, pipeline_options(distributed_final_ba=True),
-        device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/distributed"):
-        ctrl.reconstruct_partitions(num_threads=2)
-    with pytest.raises(NotImplementedError, match="parallel/ba_sharded"):
-        ctrl.adjust_global_bundle(None)
+        cams, images, graph,
+        pipeline_options(distributed_final_ba=True, num_devices=8),
+        two_view_geometries=noisy_geometries(sc, graph), device="cpu")
+    ctrl.build_view_graph()
+    ctrl.filter_and_average_rotations()
+    ctrl.cluster_scenes()
+    local = copy.deepcopy(ctrl.reconstruct_partitions(num_threads=2))
+    sequential = two_view_run[2]
+    assert len(local) == len(sequential)
+    for a, b in zip(local, sequential):
+        assert a.reg_image_ids == b.reg_image_ids
+        for i in a.reg_image_ids:
+            for f in ("qvec", "tvec", "point3D_ids"):
+                np.testing.assert_array_equal(getattr(a.images[i], f),
+                                              getattr(b.images[i], f))
+        assert sorted(a.points3D) == sorted(b.points3D)
+        for k, p in a.points3D.items():
+            np.testing.assert_array_equal(p.xyz, b.points3D[k].xyz)
+    merged = ctrl.merge_clusters()
+    ctrl.adjust_global_bundle(merged)
+    ctrl.timings["total"] = sum(ctrl.timings.values())
+    _check_limits(sc, ctrl, merged)
+    assert ctrl.ba_stats.num_iterations == 25
+
+
+@pytest.mark.slow
+def test_pipeline_distributed_final_ba(problem):
+    """Twin of tests/test_pipeline.py's: run() with the sharded final BA
+    over 8 shards."""
+    sc, (cams, images, graph) = problem
+    merged = t_dm.DistributedMapperController(
+        cams, images, graph,
+        pipeline_options(distributed_final_ba=True, num_devices=8),
+        device="cpu").run()
+    assert merged.num_reg_images() >= 22
+    errs = t_syn.pose_errors(merged, sc)
+    assert errs["ate"] < 0.05, errs
 
 
 def test_options_carry_over_from_the_reference():
@@ -217,10 +253,11 @@ def test_options_carry_over_from_the_reference():
     opts = interop.distributed_mapper_options(dataclasses.asdict(ref))
     assert (opts.mapper.snapshot_path, opts.mapper.snapshot_images_freq) \
         == ("/x", 5)
-    ref = j_dm.DistributedMapperOptions(num_devices=4)
-    with pytest.raises(ValueError, match="parallel/ba_sharded"):
-        interop.distributed_mapper_options(dataclasses.asdict(ref))
-    assert not hasattr(t_dm.DistributedMapperOptions(), "num_devices")
+    ref = j_dm.DistributedMapperOptions(num_devices=4,
+                                        distributed_final_ba=True)
+    opts = interop.distributed_mapper_options(dataclasses.asdict(ref))
+    assert (opts.num_devices, opts.distributed_final_ba) == (4, True)
+    assert t_dm.DistributedMapperOptions().num_devices is None
 
 
 def test_window_visibility_keeps_points_in_consecutive_views():

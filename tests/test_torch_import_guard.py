@@ -2,8 +2,9 @@
 
 Runs in a subprocess where `jax` is unimportable and a meta-path hook
 refuses `dagsfm_tpu` and `dagsfm_tpu.*` — but not `dagsfm_tpu_torch`,
-whose name shares the prefix — then imports every port module and
-chip_smoke.py.
+whose name shares the prefix — then imports every port module (the
+parallel layer and the CLI among them) and chip_smoke.py, or runs
+`python -m dagsfm_tpu_torch`'s commands as far as their arguments.
 """
 import os
 import pkgutil
@@ -54,6 +55,27 @@ def test_port_imports_without_jax_or_reference():
     expected = 1 + sum(1 for _ in pkgutil.walk_packages(
         dagsfm_tpu_torch.__path__, "dagsfm_tpu_torch."))
     assert n == expected >= 20
+
+
+def test_cli_runs_without_jax_or_reference():
+    """`python -m dagsfm_tpu_torch` and each command's --help, under the
+    guard: argparse exits 0 after printing the usage."""
+    head = _GUARD.split("import dagsfm_tpu_torch")[0]
+    for argv in ([], ["local_sfm_worker"], ["local_matching_worker"],
+                 ["distributed_mapper"]):
+        out = _run(head + (
+            "import runpy\n"
+            f"sys.argv = ['dagsfm_tpu_torch'] + {argv!r} + ['--help']\n"
+            "try:\n"
+            "    runpy.run_module('dagsfm_tpu_torch', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = [m for m in sys.modules if sys.modules[m] is not None and "
+            "(m == 'jax' or m.startswith(('jax.', 'dagsfm_tpu.')) or "
+            "m == 'dagsfm_tpu')]\n"
+            "assert not bad, bad\n"))
+        assert out.returncode == 0, out.stderr
+        assert "usage: dagsfm_tpu_torch" in out.stdout
 
 
 def test_guard_refuses_the_reference():

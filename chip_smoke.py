@@ -27,13 +27,15 @@ any error:
      features) -> exhaustive matching -> full E/F/H verification with
      guided matching -> mapping -> COLMAP model, scored against ground
      truth;
-  6. the distorted path, cut to 80 images (3,160 pairs; 100 until the
-     distributed path joined): images rendered through a SIMPLE_RADIAL
+  6. the distorted path, cut to 70 images (2,415 pairs; 80 until the
+     retrieval path joined, 100 until the distributed path did): images
+     rendered through a SIMPLE_RADIAL
      camera (f 1097, k1 = -0.12) -> SIFT -> exhaustive matching ->
      uncalibrated F/H verification with guided matching -> mapping from
      one blind SIMPLE_RADIAL camera (f = 1.2 max(W, H), k1 = 0, no prior;
      BA refines f and k1) -> COLMAP model, held to
-     tests/test_e2e_distorted.py's limits carried to 80 images;
+     tests/test_e2e_distorted.py's limits carried to 70 images (at
+     least 59 registered);
   7. the entry-point path: top2_batch and match_one_pair on the
      distorted path's descriptors; then they, K3's forward and reverse
      top2 on the pair (3,712 x 3,712, to the bit), and K1 on the
@@ -62,11 +64,21 @@ any error:
      matches 470 ring pairs on a second database that holds features
      only (4 K1 launches); K1 is then held against its plain version at
      that database's K;
-  11. the BA path: bundle adjustment with the iterative PCG solver at
+  11. the retrieval path: tests/test_e2e_scale.py at its 100 rendered
+     images of 256 x 192 (SIFT 512, sequential pairs with BoW loop
+     closure, essential-only verification, DistributedMapperController
+     in clusters of at most 30), held to that test's gates (at least 90
+     registered, ATE < 0.1, separator RMSE < 2 px, more than 300
+     verified pairs, a seam edge), K1 then held against its plain
+     version on its first batch (K = 512); then on a database of its
+     features with ground-truth location priors, in this process,
+     vocab_tree_builder, vocab_tree_retriever, spatial_matcher (its rows
+     the verified spatial pairs of the priors) and transitive_matcher;
+  12. the BA path: bundle adjustment with the iterative PCG solver at
      bench_suite.py's 1,000 cameras and 50,000 points, first refining a
      perturbed SIMPLE_RADIAL camera's f and k1 (joint PCG), then 5 LM
      iterations of the plain pinhole solve, timed;
-  12. the parallel path: the distributed path's clusters as mapping jobs
+  13. the parallel path: the distributed path's clusters as mapping jobs
      for two `python -m dagsfm_tpu_torch local_sfm_worker` processes on
      the one card, then a fresh controller that resumes from their
      partitions and runs the sharded final BA over NCCL (one rank, one
@@ -109,9 +121,10 @@ K1_TRUE = -0.12          # the distorted path's true radial distortion
 PIXEL_IMAGES = 30        # the pixel path, cut to make room for the
                          # distorted and parallel paths within the run's
                          # time limit
-DISTORTED_IMAGES = 80    # the distorted and planted paths, cut to make
-PLANTED_IMAGES = 40      # room for the distributed path, which maps
-                         # clusters of the planted path's kind
+DISTORTED_IMAGES = 70    # the distorted path: 100 until the distributed
+                         # path joined, 80 until the retrieval path did
+PLANTED_IMAGES = 40      # the planted path, cut to make room for the
+                         # distributed path, which maps clusters of its kind
 DIST_IMAGES = 200        # the distributed path's ring of cameras
 DIST_POINTS = 6000
 DIST_WINDOW = 16         # ring cameras that see each of its points
@@ -126,6 +139,9 @@ PAR_W, PAR_H = 640, 480  # ring of 24 images, each with its next 3, at
 PAR_FOCAL = 680.0        # tests/test_distributed_matching.py's field of
 PAR_RING = 3             # view
 PAR_FEATURES = 1024      # local_matching_worker's default
+SCALE_IMAGES = 100       # the retrieval path: tests/test_e2e_scale.py's ring
+SCALE_SPATIAL_NEIGHBORS = 4  # spatial_matcher's --max_num_neighbors there
+MODE_NEIGHBORS = 10      # num_neighbors of the retrieval path's step (b)
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 FMA outside
 # the tensor cores, HBM3
@@ -1774,6 +1790,321 @@ def entry_path(fp, dev, card: str) -> dict:
     return counts
 
 
+def scale_inputs(dev, n: int = SCALE_IMAGES):
+    """tests/test_e2e_scale.py's scene and options: n ring cameras of 256 x
+    192 (focal 280, seed 12), rendered on `dev`; SIFT at 512 features;
+    sequential pairs (overlap 4) with BoW loop detection every 10 images
+    (6 per query); essential-only verification with 128 hypotheses; the
+    distributed mapper in clusters of at most 30 images. Returns (scene,
+    images, cameras, FeaturePipelineOptions, DistributedMapperOptions)."""
+    from dagsfm_tpu_torch.clustering.image_clustering import \
+        ClusteringOptions
+    from dagsfm_tpu_torch.features import sift
+    from dagsfm_tpu_torch.pipeline.distributed_mapper import \
+        DistributedMapperOptions
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import \
+        FeaturePipelineOptions
+    from dagsfm_tpu_torch.scene import cameras, synthetic
+    from dagsfm_tpu_torch.sfm.incremental_mapper import MapperOptions
+
+    spec = synthetic.SyntheticSceneSpec(
+        num_cameras=n, num_points=60, image_width=256, image_height=192,
+        focal=280.0, seed=12, ring_radius=10.0, point_cloud_extent=4.0,
+        ring_height_jitter=0.2)
+    sc = synthetic.generate(spec)
+    images = synthetic.render_images(sc, device=dev)
+    cams = {i: cameras.make_simple_camera(i, 256, 192, focal=280.0)
+            for i in images}
+    opts = FeaturePipelineOptions(
+        pair_mode="sequential", sequential_overlap=4,
+        loop_detection_period=10, loop_detection_num_images=6,
+        num_ransac_hypotheses=128, two_view_essential_only=True,
+        batch_size=4)
+    opts.sift = sift.SiftOptions(max_num_features=512,
+                                 candidates_per_octave=512, num_octaves=3)
+    dm_opts = DistributedMapperOptions(
+        clustering=ClusteringOptions(num_images_ub=30, image_overlap=10,
+                                     completeness_ratio=0.5),
+        mapper=MapperOptions(seed=0, init_min_tri_angle_deg=2.0))
+    return sc, images, cams, opts, dm_opts
+
+
+def _check_pairs(name: str, pairs: list, ordered: bool) -> None:
+    """i < j, no duplicate, and sorted where the mode sorts its list."""
+    if any(i >= j for i, j in pairs) or len(set(pairs)) != len(pairs) or \
+            (ordered and pairs != sorted(pairs)):
+        raise AssertionError(f"{name}: malformed pair list")
+
+
+def pair_modes_step(fp, dev, card: str) -> dict:
+    """The retrieval path's step (b): every pair mode on a pixel path's
+    features (the distorted path's: all its images, up to 3,712 slots
+    each), through FeaturePipeline.select_pairs with MODE_NEIGHBORS
+    neighbours per image (COLMAP's sequential overlap; the default 50
+    would select most of 80 images' pairs); each list's candidates,
+    seconds and recall of that path's verified pairs, which must beat
+    chance (candidates / all pairs). Then the Gabor fallback of `global`
+    on the same images (a pipeline without features). Returns the
+    launch counts (select_pairs launches no kernel) and a summary."""
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import (
+        FeaturePipeline, FeaturePipelineOptions)
+
+    ids = sorted(fp.images)
+    total = len(ids) * (len(ids) - 1) // 2
+    verified = set(fp.two_view)
+    K = max(len(m) for m in fp.masks.values())
+    print(f"== retrieval path (b): every pair mode on the distorted path's "
+          f"{len(ids)} images (K = {K} slots; {len(verified)} of {total} "
+          "pairs verified there)", flush=True)
+    modes = [
+        ("sequential (overlap 10, loop detection every 10)",
+         dict(pair_mode="sequential", sequential_overlap=10,
+              loop_detection_period=10), False),
+        ("retrieval (BoW)", dict(pair_mode="retrieval"), False),
+        ("vocab_tree", dict(pair_mode="vocab_tree"), True),
+        ("vocab_tree, rerank 20 + spatial verification",
+         dict(pair_mode="vocab_tree", vocab_tree_rerank=20,
+              spatial_verification=True), True),
+        ("global (VLAD)", dict(pair_mode="global"), True),
+    ]
+    saved = fp.opts
+    nn = saved.retrieval._replace(num_neighbors=MODE_NEIGHBORS)
+    out = {}
+    torch.cuda.synchronize()
+    _zero_counts()                                    # counts zeroed
+    for name, kw, ordered in modes + [("global, Gabor fallback",
+                                       None, True)]:
+        t0 = time.perf_counter()
+        if kw is None:
+            pairs = FeaturePipeline(
+                fp.images, fp.cameras, FeaturePipelineOptions(
+                    pair_mode="global", retrieval=nn),
+                device=dev).select_pairs()
+        else:
+            fp.opts = dataclasses.replace(saved, retrieval=nn, **kw)
+            pairs = fp.select_pairs()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _check_pairs(name, pairs, ordered)
+        recall = len(verified & set(pairs)) / max(len(verified), 1)
+        chance = len(pairs) / total
+        out[name] = {"candidates": len(pairs), "seconds": secs,
+                     "recall": recall, "chance": chance}
+        print(f"  {name}: {len(pairs)} candidates in {secs:.3f} s on "
+              f"{card}; recall of the verified pairs {recall:.4f} "
+              f"(chance {chance:.4f})", flush=True)
+        if not recall > chance:
+            raise AssertionError(f"{name}: recall {recall} <= chance")
+    fp.opts = saved
+    return _counts(), out                             # counts read
+
+
+def _features_database(fp, sc, path: str) -> None:
+    """A COLMAP database of the pipeline's features only (cameras, images
+    with their ground-truth centres as location priors, keypoints and
+    uint8 descriptors of the valid slots), through the port's
+    ColmapDatabase."""
+    from dagsfm_tpu_torch.features import sift
+    from dagsfm_tpu_torch.scene import io as scene_io
+    centers = sc.centers()
+    with scene_io.ColmapDatabase(path) as db:
+        for i in sorted(fp.images):
+            cam = fp.cameras[i]
+            db.add_camera(cam)
+            db.add_image(f"image{i:05d}.jpg", cam.camera_id, image_id=i,
+                         prior_tvec=centers[i - 1])
+            db.add_keypoints(i, fp.keypoints[i][fp.masks[i]])
+            db.add_descriptors(i, sift.descriptors_to_uint8(
+                fp.descriptors[i][fp.masks[i]]))
+
+
+def _cli(argv: list) -> str:
+    """`python -m dagsfm_tpu_torch <argv>` in this process (its stdout
+    returned and echoed); fails unless it returns or exits with 0."""
+    import contextlib
+    import io
+    from dagsfm_tpu_torch.pipeline import cli
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise AssertionError(f"{argv[0]} exited {e.code}") from e
+    return buf.getvalue()
+
+
+def _two_view_pairs(path: str) -> set:
+    from dagsfm_tpu_torch.scene import io as scene_io
+    with scene_io.ColmapDatabase(path) as db:
+        return {(i, j) for (i, j, m, *_) in db.read_all_two_view_geometries()
+                if len(m)}
+
+
+def database_commands(fp, sc, dev, card: str) -> None:
+    """The retrieval path's step (c): a database of the pipeline's
+    features with the scene's ground-truth centres as location priors,
+    then `python -m dagsfm_tpu_torch`'s vocab_tree_builder,
+    vocab_tree_retriever, spatial_matcher (its new rows must be verified
+    spatial pairs of those priors, as many as it reports) and
+    transitive_matcher (each new row closes a triangle of the spatial
+    rows), each in this process on its default device, the card."""
+    from dagsfm_tpu_torch.features import retrieval as rt
+    from dagsfm_tpu_torch.features import visual_index as vi
+
+    n = len(fp.images)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        db, tree = f"{tmp}/database.db", f"{tmp}/tree.npz"
+        _features_database(fp, sc, db)
+        t_db = time.perf_counter() - t0
+        steps = {}
+        t = time.perf_counter()
+        line = _cli(["vocab_tree_builder", "--database_path", db,
+                     "--vocab_tree_path", tree])
+        steps["vocab_tree_builder"] = time.perf_counter() - t
+        print("  " + line.strip(), flush=True)
+        if vi.load_tree(tree, device=dev).num_words != 64:
+            raise AssertionError("vocab_tree_builder: no 64-word tree")
+        t = time.perf_counter()
+        lines = _cli(["vocab_tree_retriever", "--database_path", db,
+                      "--vocab_tree_path", tree]).strip().splitlines()
+        steps["vocab_tree_retriever"] = time.perf_counter() - t
+        scores = {float(x.split("(")[1].rstrip(")")) for ln in lines
+                  for x in ln.split(": ")[1].split(", ")}
+        print(f"  vocab_tree_retriever: {len(lines)} lines, e.g. "
+              f"{lines[0]}; distinct printed scores {sorted(scores)[:8]}",
+              flush=True)
+        if len(lines) != n or any(ln.count("(") != 10 for ln in lines):
+            raise AssertionError("vocab_tree_retriever: not 10 per image")
+
+        nn = SCALE_SPATIAL_NEIGHBORS
+        t = time.perf_counter()
+        line = _cli(["spatial_matcher", "--database_path", db,
+                     "--max_num_neighbors", str(nn)])
+        steps["spatial_matcher"] = time.perf_counter() - t
+        rows = _two_view_pairs(db)
+        ids = sorted(fp.images)
+        want = {(i, j) for (i, j, _) in rt.spatial_pairs(
+            ids, sc.centers(), max_num_neighbors=nn)}
+        print(f"  {line.strip()}; rows {len(rows)}", flush=True)
+        if not (rows <= want and line.startswith(
+                f"spatial matching: {len(rows)}/{len(want)} ") and rows):
+            raise AssertionError("spatial_matcher: rows are not the "
+                                 "verified spatial pairs")
+        t = time.perf_counter()
+        line = _cli(["transitive_matcher", "--database_path", db,
+                     "--num_iterations", "1"])
+        steps["transitive_matcher"] = time.perf_counter() - t
+        new = _two_view_pairs(db) - rows
+        closes = all(any((min(a, k), max(a, k)) in rows
+                         and (min(b, k), max(b, k)) in rows for k in ids)
+                     for a, b in new)
+        print(f"  {line.strip()}; new rows {len(new)}, each closing a "
+              f"triangle of the spatial rows: {closes}", flush=True)
+        if not (closes and new and line.strip() ==
+                f"transitive matching: {len(new)} new pairs verified"):
+            raise AssertionError("transitive_matcher out of limits")
+    print(f"  on {card}: database {t_db:.3f} s; " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in steps.items())
+        + f"; K1 launches {_counts()['fused_matcher']}", flush=True)
+
+
+def retrieval_path(dev, card: str, modes: tuple) -> dict:
+    """The retrieval path: (a) tests/test_e2e_scale.py at its own size,
+    100 rendered images -> SIFT -> sequential pairs with BoW loop
+    closure -> essential-only verification -> DistributedMapperController
+    (clusters of at most 30), held to the test's gates; K1 then held
+    against its plain version on the path's first batch (K = 512); (b)
+    `modes`, pair_modes_step's counts and summary (it ran earlier, on the
+    distorted path's features); (c) the database commands on a database
+    of (a)'s features with ground-truth location priors:
+    vocab_tree_builder, vocab_tree_retriever, spatial_matcher (its new
+    rows must be verified spatial pairs of those priors, as many as it
+    reports) and transitive_matcher. Returns the launch counts of (a),
+    (b) and (c) together."""
+    from dagsfm_tpu_torch.ops import matcher_kernel as mk
+    from dagsfm_tpu_torch.pipeline.distributed_mapper import \
+        DistributedMapperController
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import FeaturePipeline
+
+    n = SCALE_IMAGES
+    print(f"== retrieval path (a): tests/test_e2e_scale.py, {n} rendered "
+          "256 x 192 images, SIFT 512, sequential pairs (overlap 4) with "
+          "BoW loop detection every 10 images, essential-only, "
+          "DistributedMapperController (clusters <= 30)", flush=True)
+    t0 = time.perf_counter()
+    sc, images, cams, opts, dm_opts = scale_inputs(dev, n)
+    torch.cuda.synchronize()
+    print(f"  set-up: scene and rendering {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()                                    # counts zeroed
+    t0 = time.perf_counter()
+    fp = FeaturePipeline(images, cams, opts, device=dev)
+    fp.extract_features()
+    t1 = time.perf_counter()
+    pairs = fp.select_pairs()
+    torch.cuda.synchronize()
+    t_sel = time.perf_counter() - t1
+    fp.match_and_verify(pairs)
+    k1_match = _counts()["fused_matcher"]
+    cams2, imgs2, graph = fp.to_mapper_inputs()
+    ctrl = DistributedMapperController(
+        cams2, imgs2, graph, dm_opts,
+        two_view_geometries=fp.two_view_edges(), device=dev)
+    merged = ctrl.run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    err, t_model = _write_and_gate(merged, sc, n, 0.1, math.inf, min_reg=90)
+    sep = ctrl.separator_rmse(merged)
+    loops = [(i, j) for i, j in pairs if j - i > opts.sequential_overlap]
+    seam = [(i, j) for i, j in fp.two_view if j - i > 80]
+    tm_ = fp.timings
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in ctrl.timings.items())
+    sizes = [len(c.image_ids) for c in ctrl.clusters]
+    print(f"  on {card}: extraction {tm_['extraction']:.3f} s, pair "
+          f"selection {t_sel:.3f} s ({len(pairs)} candidates, {len(loops)} "
+          f"loop pairs), matching {tm_['matching']:.3f} s (K1 launches "
+          f"{k1_match}), verification {tm_['verification']:.3f} s "
+          f"({fp.num_classified} classified, {len(fp.two_view)} verified, "
+          f"{len(seam)} seam edges with j - i > 80); controller stages: "
+          f"{stages}; clusters {len(sizes)}, sizes {sizes}; separator RMSE "
+          f"{sep:.6f} px; model write+read {t_model:.3f} s; end to end "
+          f"{t2 - t0 + t_model:.3f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    if not (len(fp.two_view) > 300 and seam and sep < 2.0 and k1_match):
+        raise AssertionError("retrieval path (a) out of limits")
+
+    first = pairs[:MATCH_BATCH]
+    slot = fp.bank.slot
+    i1 = torch.tensor([slot[a] for a, _ in first], device=dev)
+    i2 = torch.tensor([slot[b] for _, b in first], device=dev)
+    d1, d2 = fp.bank.desc[i1], fp.bank.desc[i2]
+    m1, m2 = fp.bank.mask[i1], fp.bank.mask[i2]
+    counts_a = _counts()
+    _hold_j(f"fused matcher, the retrieval path's first batch "
+            f"(B={len(first)}, K={d1.shape[1]})",
+            mk.fused_match_j(d1, d2, m1, m2),
+            mk.fused_match_j_reference(d1, d2, m1, m2),
+            mk.borderline_rows(d1, d2, m1, m2))
+
+    mode_counts, summary = modes
+    print("  (b), run after the entry-point path: " + "; ".join(
+        f"{k} {v['candidates']} in {v['seconds']:.3f} s, recall "
+        f"{v['recall']:.4f} > {v['chance']:.4f}" for k, v in summary.items()),
+        flush=True)
+
+    print("== retrieval path (c): the database commands on a database of "
+          f"(a)'s features with ground-truth location priors", flush=True)
+    _zero_counts()                                    # counts zeroed
+    database_commands(fp, sc, dev, card)
+    counts = _counts()                                # counts read
+    return {k: counts_a[k] + counts[k] + mode_counts[k] for k in counts}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--num-images", type=int, default=PLANTED_IMAGES,
@@ -1819,11 +2150,13 @@ def main() -> int:
     print(f"== pixel path cut to {PIXEL_IMAGES} images (50 until the "
           "parallel path joined, 100 before the distorted path)", flush=True)
     pixel, _ = pixel_path(dev, card, PIXEL_IMAGES, args.max_features)
-    print(f"== distorted path cut to {DISTORTED_IMAGES} images (100 until "
-          "the distributed path joined)", flush=True)
+    print(f"== distorted path cut to {DISTORTED_IMAGES} images (80 until "
+          "the retrieval path joined, 100 until the distributed path did)",
+          flush=True)
     distorted, fp = pixel_path(dev, card, DISTORTED_IMAGES,
                                args.max_features, distorted=True)
     entry = entry_path(fp, dev, card)
+    modes = pair_modes_step(fp, dev, card)
     del fp
     print(f"== planted path cut to {args.num_images} images (100 until the "
           "distributed path joined)", flush=True)
@@ -1832,18 +2165,22 @@ def main() -> int:
     planted = main_path(dev, card, args.num_images, args.breakdown)
     dist, dist_state = distributed_path(dev, card)
     database = database_path(dev, card)
+    retrieval = retrieval_path(dev, card, modes)
     bapath, ba_state = ba_path(dev, card)
     parallel = parallel_path(dev, card, dist_state, ba_state)
     del dist_state, ba_state
     paths = {"tool": tool, "planted": planted, "pixel": pixel,
              "distorted": distorted, "entry": entry, "distributed": dist,
-             "database": database, "ba": bapath, "parallel": parallel}
+             "database": database, "retrieval": retrieval, "ba": bapath,
+             "parallel": parallel}
     for e, path in ((k1, "distorted"), (k2, "entry"), (k3, "entry"),
                     (k4, "tool")):
         e["launches"] = paths[path][e["name"]]
         e["launches_by_path"] = {p: c[e["name"]] for p, c in paths.items()}
         if not e["launches"]:
             raise AssertionError(f"{e['name']} never launched on its path")
+    if not retrieval["fused_matcher"]:
+        raise AssertionError("K1 never launched on the retrieval path")
     print(f"== whole run {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card, flush=True)

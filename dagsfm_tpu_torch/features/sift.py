@@ -11,7 +11,11 @@ batch of grayscale images in, padded keypoint / descriptor arrays out.
   4. One Newton step of sub-pixel / sub-scale refinement, contrast and
      edge checks.
   5. Orientation from a 36-bin gradient histogram.
-  6. The 4x4x8 descriptor, L2 -> clip 0.2 -> L2 -> L1-root.
+  6. The 4x4x8 descriptor, L2 -> clip 0.2 -> L2 -> L1-root; optionally
+     on a grid warped by the keypoint's affine shape
+     (`estimate_affine_shape`) and pooled over domain sizes
+     (`domain_size_pooling`), both through the gather route as in the
+     reference.
 
 Precision follows the reference as its tests run it (JAX with x64): the
 pyramid, DoG and candidate scores in float32, everything from the
@@ -21,7 +25,7 @@ descending sort: `torch.topk` promises no order). The reference's TPU
 workarounds are not carried over: the one-hot patch-sampling route
 (bit-identical to the gather route, which this port uses) and
 `approx_max_k` (exact top-k here; on the CPU the reference's is exact
-too). Domain-size pooling and affine shape estimation are not ported.
+too).
 """
 
 from __future__ import annotations
@@ -53,11 +57,11 @@ class SiftOptions(NamedTuple):
     descriptor_patch: int = 16          # sample grid (4 bins x 4 samples)
     l1_root: bool = True
     upright: bool = False
-    domain_size_pooling: bool = False   # not ported
+    domain_size_pooling: bool = False   # DSP-SIFT
     dsp_min_scale: float = 1.0 / 6.0
     dsp_max_scale: float = 3.0
     dsp_num_scales: int = 10
-    estimate_affine_shape: bool = False  # not ported
+    estimate_affine_shape: bool = False  # one-shot affine adaptation
 
 
 class SiftFeatures(NamedTuple):
@@ -253,10 +257,75 @@ def _normalize_desc(out: torch.Tensor, l1_root: bool) -> torch.Tensor:
     return out
 
 
-def _describe(gflat, base, H, W, yf, xf, sigma, theta, opts: SiftOptions):
-    """(B, N, 128) descriptors: a P x P grid rotated by theta over 6 sigma
-    each way, bilinear samples, gradients, orientation soft-binned into 8
-    bins and space into the 4 x 4 grid."""
+def _bilinear(gflat, base, H, W, ys, xs):
+    """Bilinear samples at (B, N, ...) positions ys, xs (the reference's
+    `_bilinear_lvl`: the cell clamped into the level, weights in [0, 1])."""
+    y0 = _index(torch.floor(ys), 0, H - 2)
+    x0 = _index(torch.floor(xs), 0, W - 2)
+    dy = torch.clamp(ys - y0, 0.0, 1.0)
+    dx = torch.clamp(xs - x0, 0.0, 1.0)
+    v00 = _sample(gflat, base, W, y0, x0)
+    v01 = _sample(gflat, base, W, y0, x0 + 1)
+    v10 = _sample(gflat, base, W, y0 + 1, x0)
+    v11 = _sample(gflat, base, W, y0 + 1, x0 + 1)
+    return (v00 * (1 - dy) * (1 - dx) + v01 * (1 - dy) * dx
+            + v10 * dy * (1 - dx) + v11 * dy * dx)
+
+
+def _affine_shape(gflat, base, H, W, yf, xf, sigma):
+    """(B, N, 2, 2) one-shot affine adaptation: the second-moment matrix M
+    of the bilinear gradients over a 17 x 17 window of step 1.5 sigma / 8
+    * 2, Gaussian weighted, divided by its trace; M^(-1/2) from the 2x2
+    eigendecomposition in closed form (the eigenvector of the larger
+    eigenvalue is (M01, l1 - M00), or (1, 0) when |M01| <= 1e-12),
+    scaled to unit determinant so the keypoint keeps its scale."""
+    nb = 8
+    dev = yf.device
+    grid = torch.arange(-nb, nb + 1, dtype=torch.float32, device=dev)
+    step = (1.5 * sigma / nb * 2.0)[..., None, None]
+    ys, xs = torch.broadcast_tensors(
+        yf[..., None, None] + grid[:, None] * step,
+        xf[..., None, None] + grid[None, :] * step)
+    v = _bilinear(gflat, base, H, W, ys, xs)            # (B, N, 17, 17)
+    gy = _grad(v, -2)
+    gx = _grad(v, -1)
+    w = torch.exp(-(grid[:, None] ** 2 + grid[None, :] ** 2)
+                  / (2 * (nb / 1.5) ** 2))
+    mxx = torch.sum(w * gx * gx, (-2, -1))
+    mxy = torch.sum(w * gx * gy, (-2, -1))
+    myy = torch.sum(w * gy * gy, (-2, -1))
+    trace = torch.clamp(mxx + myy, min=1e-12)
+    m00, m01, m11 = mxx / trace, mxy / trace, myy / trace
+    tr = m00 + m11
+    det = m00 * m11 - m01 * m01
+    disc = torch.sqrt(torch.clamp(tr * tr / 4 - det, min=1e-18))
+    l1 = tr / 2 + disc
+    l2 = torch.clamp(tr / 2 - disc, min=1e-9)
+    off = torch.abs(m01) > 1e-12
+    e = torch.stack([torch.where(off, m01, torch.ones_like(m01)),
+                     torch.where(off, l1 - m00, torch.zeros_like(m01))], -1)
+    e = e / torch.clamp(torch.linalg.norm(e, dim=-1, keepdim=True),
+                        min=1e-12)
+    V = torch.stack([e, torch.stack([-e[..., 1], e[..., 0]], -1)], -1)
+    lam = torch.stack([l1 ** -0.5, l2 ** -0.5], -1)
+    Ainv = (V * lam[..., None, :]) @ V.transpose(-1, -2)
+    det_a = Ainv[..., 0, 0] * Ainv[..., 1, 1] - Ainv[..., 0, 1] \
+        * Ainv[..., 1, 0]
+    return Ainv / torch.sqrt(torch.clamp(det_a, min=1e-12))[..., None, None]
+
+
+def _dsp_scales(opts: SiftOptions) -> np.ndarray:
+    """DSP's domain-size multipliers: numpy's linspace, within a few ulps
+    of the reference's jnp.linspace (a descriptor moves by ~1e-15)."""
+    return np.linspace(opts.dsp_min_scale, opts.dsp_max_scale,
+                       opts.dsp_num_scales)
+
+
+def _histograms(gflat, base, H, W, yf, xf, sigma, theta, A, opts):
+    """(B, N, 128) raw descriptor histograms: a P x P grid rotated by
+    theta over 6 sigma each way (warped by A, (B, N, 2, 2), when given),
+    bilinear samples, gradients, orientation soft-binned into 8 bins and
+    space into the 4 x 4 grid."""
     P = opts.descriptor_patch
     dev = yf.device
     half = P / 2.0
@@ -270,18 +339,14 @@ def _describe(gflat, base, H, W, yf, xf, sigma, theta, opts: SiftOptions):
     v = gg[None, :] * ext                               # (B, N, 1, P)
     uy = u * ct - v * st
     ux = u * st + v * ct
-    ys = yf[..., None, None] + uy
-    xs = xf[..., None, None] + ux
-    y0 = _index(torch.floor(ys), 0, H - 2)
-    x0 = _index(torch.floor(xs), 0, W - 2)
-    dy = torch.clamp(ys - y0, 0.0, 1.0)
-    dx = torch.clamp(xs - x0, 0.0, 1.0)
-    v00 = _sample(gflat, base, W, y0, x0)
-    v01 = _sample(gflat, base, W, y0, x0 + 1)
-    v10 = _sample(gflat, base, W, y0 + 1, x0)
-    v11 = _sample(gflat, base, W, y0 + 1, x0 + 1)
-    val = (v00 * (1 - dy) * (1 - dx) + v01 * (1 - dy) * dx
-           + v10 * dy * (1 - dx) + v11 * dy * dx)       # (B, N, P, P) f64
+    if A is None:
+        ys = yf[..., None, None] + uy
+        xs = xf[..., None, None] + ux
+    else:
+        a = A[..., None, None, :, :]
+        ys = yf[..., None, None] + a[..., 0, 0] * uy + a[..., 0, 1] * ux
+        xs = xf[..., None, None] + a[..., 1, 0] * uy + a[..., 1, 1] * ux
+    val = _bilinear(gflat, base, H, W, ys, xs)          # (B, N, P, P) f64
     gy = _grad(val, -2)
     gx = _grad(val, -1)
     mag = (torch.sqrt(gx * gx + gy * gy) * w_gauss).flatten(-2)
@@ -295,7 +360,23 @@ def _describe(gflat, base, H, W, yf, xf, sigma, theta, opts: SiftOptions):
     O.scatter_(-1, o0i[..., None], (1.0 - fo)[..., None])
     O.scatter_add_(-1, ((o0i + 1) % 8)[..., None], fo[..., None])
     D = torch.einsum("bns,si,bnsj->bnij", mag, S_mat, O)  # (B, N, 16, 8)
-    return _normalize_desc(D.flatten(-2), opts.l1_root)
+    return D.flatten(-2)
+
+
+def _describe(gflat, base, H, W, yf, xf, sigma, theta, opts: SiftOptions):
+    """(B, N, 128) normalised descriptors. With estimate_affine_shape the
+    sampling grid is warped by each keypoint's affine shape; with
+    domain_size_pooling the raw histograms are averaged over
+    dsp_num_scales domain sizes, then normalised once."""
+    A = _affine_shape(gflat, base, H, W, yf, xf, sigma) \
+        if opts.estimate_affine_shape else None
+    if opts.domain_size_pooling:
+        raw = torch.stack([_histograms(gflat, base, H, W, yf, xf,
+                                       sigma * float(m), theta, A, opts)
+                           for m in _dsp_scales(opts)]).mean(0)
+    else:
+        raw = _histograms(gflat, base, H, W, yf, xf, sigma, theta, A, opts)
+    return _normalize_desc(raw, opts.l1_root)
 
 
 def _extract_octave(gauss: torch.Tensor, octave: int, opts: SiftOptions):
@@ -384,9 +465,6 @@ def extract(images: torch.Tensor, opts: SiftOptions = SiftOptions()
     """SIFT for a batch of grayscale images (B, H, W) in [0, 1], on the
     images' device. With first_octave -1 the base octave is the image
     upsampled 2x; keypoints are in the original pixel frame."""
-    if opts.domain_size_pooling or opts.estimate_affine_shape:
-        raise NotImplementedError(
-            "domain_size_pooling and estimate_affine_shape are not ported")
     B, H, W = images.shape
     S = opts.scales_per_octave
     k = 2.0 ** (1.0 / S)

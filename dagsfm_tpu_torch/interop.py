@@ -4,7 +4,8 @@ The JAX side hands over plain data: `SceneArrays._asdict()` with numpy
 values, a Reconstruction's cameras / images / points as dicts of records
 (any objects with the reference's field names), descriptor / mask
 dicts, view graphs and image clusters (objects with the reference's
-field names), options as plain dicts (`NamedTuple._asdict()`,
+field names), vocab trees (levels, proj, thresholds as arrays), options
+as plain dicts (`NamedTuple._asdict()`,
 `dataclasses.asdict`) and SIFT outputs as numpy arrays. Nothing here
 imports the JAX package.
 """
@@ -19,15 +20,19 @@ from dagsfm_tpu_torch import device as devmod
 from dagsfm_tpu_torch.clustering.image_clustering import (ClusteringOptions,
                                                           ImageCluster)
 from dagsfm_tpu_torch.estimation.rotation_averaging import RAOptions
+from dagsfm_tpu_torch.features import retrieval as rt
 from dagsfm_tpu_torch.features import sift
-from dagsfm_tpu_torch.features.matching import DescriptorBank, make_bank
+from dagsfm_tpu_torch.features import visual_index as vi
+from dagsfm_tpu_torch.features.matching import (DescriptorBank,
+                                                MatchingOptions, make_bank)
 from dagsfm_tpu_torch.graph.view_graph import TwoViewEdge, ViewGraph
 from dagsfm_tpu_torch.ops import two_view_classify as tvc
 from dagsfm_tpu_torch.parallel.ba_sharded import (ShardedBAProblem,
                                                   problem_from_numpy)
 from dagsfm_tpu_torch.pipeline.distributed_mapper import \
     DistributedMapperOptions
-from dagsfm_tpu_torch.pipeline.feature_pipeline import TwoViewRecord
+from dagsfm_tpu_torch.pipeline.feature_pipeline import (
+    FeaturePipelineOptions, TwoViewRecord)
 from dagsfm_tpu_torch.scene import cameras as cm
 from dagsfm_tpu_torch.scene.reconstruction import (ImageRecord, Point3DRecord,
                                                    Reconstruction, SceneArrays,
@@ -221,3 +226,35 @@ def distributed_mapper_options(fields: dict) -> DistributedMapperOptions:
         if k in f:
             f[k] = cls(**_plain(f[k]))
     return DistributedMapperOptions(**f)
+
+
+def retrieval_options(fields: dict) -> rt.RetrievalOptions:
+    """RetrievalOptions from the reference's `RetrievalOptions._asdict()`."""
+    return rt.RetrievalOptions(**fields)
+
+
+def vocab_tree_options(fields: dict) -> vi.VocabTreeOptions:
+    """VocabTreeOptions from the reference's `VocabTreeOptions._asdict()`."""
+    return vi.VocabTreeOptions(**fields)
+
+
+def vocab_tree(tree, device=None) -> vi.VocabTree:
+    """Port VocabTree from the reference's (levels, proj and thresholds as
+    arrays), in float32 on `device`."""
+    return vi.tree_from_arrays([np.asarray(lv) for lv in tree.levels],
+                               np.asarray(tree.proj),
+                               np.asarray(tree.thresholds), device)
+
+
+def feature_pipeline_options(fields: dict) -> FeaturePipelineOptions:
+    """FeaturePipelineOptions from the reference's
+    `dataclasses.asdict(...)` (its SIFT, matching and retrieval options as
+    dicts or NamedTuples)."""
+    f = dict(fields)
+    if "sift" in f:
+        f["sift"] = sift_options(_plain(f["sift"]))
+    if "matching" in f:
+        f["matching"] = MatchingOptions(**_plain(f["matching"]))
+    if "retrieval" in f:
+        f["retrieval"] = retrieval_options(_plain(f["retrieval"]))
+    return FeaturePipelineOptions(**f)

@@ -1,13 +1,22 @@
 """Command-line interface: `python -m dagsfm_tpu_torch <command>`.
 
 Port of dagsfm_tpu/pipeline/cli.py, with the JAX package's flag names
-and result lines. Ported so far are the commands of the parallel layer:
+and result lines. Ported so far are the commands of the parallel layer
+and those of pair selection on a database of features:
 
   local_sfm_worker       claim cluster jobs from a work_dir and map them
   local_matching_worker  claim matching jobs from a work_dir: extract,
                          match and verify each into its own database
   distributed_mapper     the whole graph-partitioned pipeline from a
                          database (--distributed 1: the sharded final BA)
+  vocab_tree_builder     train a vocab tree on a database's descriptors
+                         (an .npz both packages read)
+  vocab_tree_retriever   rank a database's images against each other
+                         through a vocab tree
+  spatial_matcher        match and verify the pairs of nearby location
+                         priors (--is_gps 1: WGS84 priors, compared in ENU)
+  transitive_matcher     match and verify the transitive closure of the
+                         verified pairs
 
 Every command takes `--device` (default `cuda`; `cpu` runs on the CPU).
 """
@@ -116,6 +125,83 @@ def cmd_distributed_mapper(args):
           f"{rec.num_points3D()} points -> {args.output_path}")
 
 
+def cmd_vocab_tree_builder(args):
+    """Train a vocab tree on every descriptor of the database (as stored,
+    uint8 values in float32) and save it as an .npz."""
+    from dagsfm_tpu_torch.features import visual_index as vi
+    from dagsfm_tpu_torch.scene.io import ColmapDatabase
+    with ColmapDatabase(args.database_path) as db:
+        descs = [np.asarray(d, np.float32) for d in
+                 (db.read_descriptors(i) for i in db.read_images()) if len(d)]
+    train = np.concatenate(descs)
+    opts = vi.VocabTreeOptions(branching=args.branching, depth=args.depth)
+    tree = vi.build_vocab_tree(train, opts, device=args.device)
+    vi.save_tree(args.vocab_tree_path, tree)
+    print(f"vocab tree: {tree.num_words} words from {len(train)} "
+          f"descriptors -> {args.vocab_tree_path}")
+
+
+def cmd_vocab_tree_retriever(args):
+    """Index the database's images (descriptors / 512) in a vocab tree and
+    print each image's top --num_images others with their scores."""
+    from dagsfm_tpu_torch.features import visual_index as vi
+    from dagsfm_tpu_torch.scene.io import ColmapDatabase
+    index = vi.VisualIndex(vi.load_tree(args.vocab_tree_path,
+                                        device=args.device))
+    with ColmapDatabase(args.database_path) as db:
+        imgs = db.read_images()
+        for iid in sorted(imgs):
+            d = db.read_descriptors(iid).astype(np.float32) / 512.0
+            kp = db.read_keypoints(iid)
+            if len(d):
+                index.add(iid, d, kp[:, :2])
+    for qid in sorted(imgs):
+        ranked = index.query(qid, num_images=args.num_images)
+        top = ", ".join(f"{imgs[i][0]}({s:.3f})" for i, s in
+                        ranked[: args.num_images])
+        print(f"{imgs[qid][0]}: {top}")
+
+
+def cmd_spatial_matcher(args):
+    """Match and verify each image with its nearest location priors."""
+    from dagsfm_tpu_torch.features.retrieval import spatial_pairs
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import (
+        load_features_from_database, run_matcher_on_database)
+    from dagsfm_tpu_torch.utils import gps
+    *_, priors = load_features_from_database(args.database_path)
+    if not priors:
+        raise SystemExit("no location priors in database")
+    ids = sorted(priors)
+    loc = np.stack([priors[i] for i in ids])
+    if args.is_gps:
+        loc = gps.ell_to_enu(loc)
+    pairs = [(i, j) for (i, j, _) in spatial_pairs(
+        ids, loc, max_num_neighbors=args.max_num_neighbors,
+        max_distance=args.max_distance)]
+    n = run_matcher_on_database(args.database_path, pairs,
+                                device=args.device)
+    print(f"spatial matching: {n}/{len(pairs)} pairs verified")
+
+
+def cmd_transitive_matcher(args):
+    """Match and verify the pairs that close a triangle of verified pairs,
+    --batch_size at most per round, for --num_iterations rounds."""
+    from dagsfm_tpu_torch.features.retrieval import transitive_pairs
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import (
+        load_features_from_database, run_matcher_on_database)
+    *_, matched, _ = load_features_from_database(args.database_path)
+    total = 0
+    for _ in range(args.num_iterations):
+        pairs = [(i, j) for (i, j, _) in transitive_pairs(
+            matched, num_iterations=1, batch_size=args.batch_size)]
+        if not pairs:
+            break
+        total += run_matcher_on_database(args.database_path, pairs,
+                                         device=args.device)
+        matched = matched + pairs
+    print(f"transitive matching: {total} new pairs verified")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dagsfm_tpu_torch",
@@ -155,6 +241,28 @@ def build_parser() -> argparse.ArgumentParser:
         ("--max_num_features", dict(type=int, default=1024)),
         ("--guided_matching", dict(action="store_true")),
         ("--lease_timeout", dict(type=float, default=3600.0)),
+    ])
+    add("vocab_tree_builder", cmd_vocab_tree_builder, [
+        ("--database_path", dict(required=True)),
+        ("--vocab_tree_path", dict(required=True)),
+        ("--branching", dict(type=int, default=8)),
+        ("--depth", dict(type=int, default=2)),
+    ])
+    add("vocab_tree_retriever", cmd_vocab_tree_retriever, [
+        ("--database_path", dict(required=True)),
+        ("--vocab_tree_path", dict(required=True)),
+        ("--num_images", dict(type=int, default=10)),
+    ])
+    add("spatial_matcher", cmd_spatial_matcher, [
+        ("--database_path", dict(required=True)),
+        ("--max_num_neighbors", dict(type=int, default=50)),
+        ("--max_distance", dict(type=float, default=100.0)),
+        ("--is_gps", dict(type=int, default=0)),
+    ])
+    add("transitive_matcher", cmd_transitive_matcher, [
+        ("--database_path", dict(required=True)),
+        ("--batch_size", dict(type=int, default=1000)),
+        ("--num_iterations", dict(type=int, default=3)),
     ])
     return p
 

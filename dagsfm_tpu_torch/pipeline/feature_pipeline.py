@@ -3,7 +3,10 @@ verification (+ guided re-matching) -> COLMAP database -> mapper inputs.
 
 Port of dagsfm_tpu/pipeline/feature_pipeline.py: `extract_features`
 (SIFT per image batch on the device, the bf16 descriptor bank kept there),
-exhaustive pairs, `match_and_verify` with full E/F/H classification and
+`select_pairs` in all five pair modes (exhaustive, sequential with BoW
+loop detection, BoW retrieval, vocab tree with Hamming re-ranking and
+spatial verification, global descriptors), `match_and_verify` with full
+E/F/H classification and
 optional guided matching, `to_mapper_inputs`, `two_view_edges`, and the
 database checkpoint: `write_database`, `run` (which loads a database that
 already holds two-view geometries instead of computing anything) and
@@ -11,7 +14,6 @@ already holds two-view geometries instead of computing anything) and
 `load_two_view_geometries_from_database` (the distributed controller's
 pose edges), `load_features_from_database` and `run_matcher_on_database`
 (matching and verification of given pairs on a database of features).
-Other pair modes wait.
 """
 
 from __future__ import annotations
@@ -24,9 +26,11 @@ import numpy as np
 import torch
 
 from dagsfm_tpu_torch import device as devmod
+from dagsfm_tpu_torch.features import global_descriptor as gd
 from dagsfm_tpu_torch.features import matching as fm
 from dagsfm_tpu_torch.features import retrieval as rt
 from dagsfm_tpu_torch.features import sift
+from dagsfm_tpu_torch.features import visual_index as vi
 from dagsfm_tpu_torch.ops import epipolar as epi
 from dagsfm_tpu_torch.ops import two_view_classify as tvc
 from dagsfm_tpu_torch.scene import io as scene_io
@@ -58,7 +62,15 @@ class FeaturePipelineOptions:
     sift: sift.SiftOptions = dataclasses.field(default_factory=sift.SiftOptions)
     matching: fm.MatchingOptions = dataclasses.field(
         default_factory=fm.MatchingOptions)
-    pair_mode: str = "exhaustive"
+    retrieval: rt.RetrievalOptions = dataclasses.field(
+        default_factory=rt.RetrievalOptions)
+    pair_mode: str = "exhaustive"   # exhaustive | sequential | retrieval
+    #                               # | vocab_tree | global
+    # sequential mode: each frame with its next sequential_overlap frames,
+    # and BoW loop detection every loop_detection_period frames (0: off)
+    sequential_overlap: int = 10
+    loop_detection_period: int = 0
+    loop_detection_num_images: int = 50
     batch_size: int = 8             # images per SIFT call
     min_num_inliers: int = 15
     max_error_px: float = 4.0
@@ -66,6 +78,9 @@ class FeaturePipelineOptions:
     two_view_essential_only: bool = False
     seed: int = 0
     guided_matching: bool = False
+    # vocab_tree mode: Hamming re-rank depth and vote-and-verify
+    vocab_tree_rerank: int = 0
+    spatial_verification: bool = False
 
 
 class FeaturePipeline:
@@ -153,11 +168,72 @@ class FeaturePipeline:
         self.timings["extraction"] = time.time() - t0
 
     def select_pairs(self) -> list:
-        if self.opts.pair_mode != "exhaustive":
-            raise NotImplementedError(
-                f"pair_mode {self.opts.pair_mode!r} is not ported")
-        return [(i, j) for (i, j, _) in rt.exhaustive_pairs(
-            sorted(self.images))]
+        """Candidate pairs (i, j), i < j, by `pair_mode`. The device math
+        (k-means, BoW, tree descent, signatures, Gabor, VLAD) runs on the
+        pipeline's device."""
+        ids = sorted(self.images)
+        o, dev = self.opts, self.device
+        if o.pair_mode == "exhaustive":
+            return [(i, j) for (i, j, _) in rt.exhaustive_pairs(ids)]
+        if o.pair_mode == "sequential":
+            return [(i, j) for (i, j, _) in rt.sequential_pairs(
+                ids, overlap=o.sequential_overlap,
+                loop_detection_period=o.loop_detection_period,
+                loop_detection_num_images=o.loop_detection_num_images,
+                descriptors=self.descriptors, masks=self.masks,
+                retrieval_opts=o.retrieval, seed=o.seed, device=dev)]
+        if o.pair_mode == "retrieval":
+            return [(i, j) for (i, j, _) in rt.similarity_pairs(
+                self.descriptors, self.masks, o.retrieval, seed=o.seed,
+                device=dev)]
+        if o.pair_mode == "vocab_tree":
+            return self._vocab_tree_pairs(ids)
+        if o.pair_mode == "global":
+            # VLAD over the SIFT descriptors when there are any, else the
+            # Gabor embedding of the raw images
+            if self.descriptors:
+                descs = gd.vlad_descriptors(self.descriptors, self.masks,
+                                            seed=o.seed, device=dev)
+            else:
+                descs = gd.global_descriptors(self.images, device=dev)
+            return [(i, j) for (i, j, _) in gd.global_similarity_pairs(
+                descs, num_neighbors=o.retrieval.num_neighbors)]
+        raise ValueError(o.pair_mode)
+
+    def _vocab_tree_pairs(self, ids: list) -> list:
+        """A VisualIndex over a tree trained on (at most 20,000 of) the
+        scene's own descriptors; each image's top num_neighbors, Hamming
+        re-ranked when vocab_tree_rerank > 0, each new pair kept only if
+        vote_and_verify scores >= 4 when spatial_verification is on."""
+        train = np.concatenate(
+            [self.descriptors[i][self.masks[i]] for i in ids])
+        rng = np.random.default_rng(self.opts.seed)
+        if len(train) > 20000:
+            train = train[rng.choice(len(train), 20000, replace=False)]
+        tree = vi.build_vocab_tree(train, vi.VocabTreeOptions(),
+                                   seed=self.opts.seed, device=self.device)
+        index = vi.VisualIndex(tree)
+        for i in ids:
+            index.add(i, self.descriptors[i][self.masks[i]],
+                      keypoints=self.kp_geom[i][self.masks[i]]
+                      if i in self.kp_geom else None)
+        pairs = set()
+        for i in ids:
+            for j, _ in index.query(
+                    i, num_images=self.opts.retrieval.num_neighbors,
+                    rerank=self.opts.vocab_tree_rerank):
+                pair = (i, j) if i < j else (j, i)
+                if pair in pairs or pair[0] == pair[1]:
+                    continue
+                if self.opts.spatial_verification and i in self.kp_geom:
+                    score, _ = vi.vote_and_verify(
+                        self.kp_geom[pair[0]][self.masks[pair[0]]],
+                        self.kp_geom[pair[1]][self.masks[pair[1]]],
+                        index.match_words(pair[0], pair[1]))
+                    if score < 4:
+                        continue
+                pairs.add(pair)
+        return sorted(pairs)
 
     def match_and_verify(self, pairs: list | None = None):
         t0 = time.time()

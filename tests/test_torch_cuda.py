@@ -11,8 +11,11 @@ bundle adjustment with intrinsics (dense joint and iterative PCG), a
 mapping from a blind distorted camera and one through the focal grid
 (a blind camera per image) repeat bit for bit; the multi-model
 controller repeats bit for bit, and essential verification and the pose
-edges read from a database agree with the CPU. Every test here needs a
-CUDA card and skips without one.
+edges read from a database agree with the CPU; pair selection's k-means,
+tree descent and BoW histograms (borderline rule, and bit for bit
+between two runs), the Gabor embedding and VLAD, and SIFT with
+domain-size pooling and affine shape agree with the CPU port. Every
+test here needs a CUDA card and skips without one.
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -771,3 +774,112 @@ def test_parallel_entry_points_default_to_the_card(cuda, tmp_path):
     assert len(jobs) == 2 and sorted(tuple(p) for j in jobs
                                      for p in j["pairs"]) == ring
     assert t_dist.init_multihost() == (0, 1)
+
+
+def _clustered(n=3000, dim=64, centers=24, noise=0.15, seed=0):
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(centers, dim))
+    x = c[rng.integers(0, centers, n)] + noise * rng.normal(size=(n, dim))
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _near_tie(x, cents, rel=1e-5):
+    """Rows whose two nearest centroids tie within rel (f64 distances)."""
+    d2 = ((x[:, None, :].astype(np.float64) - cents[None]) ** 2).sum(-1)
+    two = np.sort(d2, axis=1)[:, :2]
+    return (two[:, 1] - two[:, 0]) <= rel * max(d2.max(), 1.0)
+
+
+def test_kmeans_quantize_and_bow_on_the_card_equal_the_cpu(cuda):
+    """k-means (the same generator draw: it is drawn on the CPU), tree
+    descent and BoW histograms on the card against the CPU port, under
+    the borderline rule; two runs on the card give the same bits (a
+    one-hot product, no atomics)."""
+    from dagsfm_tpu_torch.features import retrieval as t_rt
+    from dagsfm_tpu_torch.features import visual_index as t_vi
+    x = _clustered()
+    cpu = t_rt.kmeans_fit(torch.as_tensor(x), t_rt.generator(5), 32, 10)
+    runs = [t_rt.kmeans_fit(torch.as_tensor(x, device=cuda),
+                            t_rt.generator(5), 32, 10) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    np.testing.assert_allclose(runs[0].cpu().numpy(), cpu.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    flag = _near_tie(x, cpu.numpy())
+    d2 = lambda c: (-2.0 * x.astype(np.float64) @ c.T  # noqa: E731
+                    + (c.astype(np.float64) ** 2).sum(-1)).argmin(1)
+    diff = d2(runs[0].cpu().numpy()) != d2(cpu.numpy())
+    assert not (diff & ~flag).any(), int(diff.sum())
+
+    tree = t_vi.build_vocab_tree(x, t_vi.VocabTreeOptions(), seed=1,
+                                 device="cpu")
+    tree_c = t_vi.VocabTree(tuple(lv.to(cuda) for lv in tree.levels),
+                            tree.proj.to(cuda), tree.thresholds.to(cuda))
+    w_cpu = t_vi.quantize(tree, torch.as_tensor(x)).numpy()
+    w_gpu = [t_vi.quantize(tree_c, torch.as_tensor(x, device=cuda))
+             for _ in range(2)]
+    assert torch.equal(w_gpu[0], w_gpu[1])
+    assert (w_gpu[0].cpu().numpy() != w_cpu).mean() < 1e-3
+
+    desc = torch.as_tensor(x.reshape(30, 100, -1))
+    mask = torch.ones(30, 100)
+    mask[:, ::9] = 0
+    h_cpu = t_rt.bow_histograms(desc, mask, cpu, 32)
+    h_gpu = [t_rt.bow_histograms(desc.to(cuda), mask.to(cuda),
+                                 cpu.to(cuda), 32) for _ in range(2)]
+    assert torch.equal(h_gpu[0], h_gpu[1])
+    moved = float((h_gpu[0].cpu() - h_cpu).abs().sum())
+    assert moved <= 2 * int(_near_tie(x, cpu.numpy()).sum()), moved
+
+
+def test_gabor_and_vlad_on_the_card_equal_the_cpu(cuda):
+    from dagsfm_tpu_torch.features import global_descriptor as t_gd
+    rng = np.random.default_rng(2)
+    images = {i: rng.random((192, 256)).astype(np.float32)
+              for i in range(1, 6)}
+    images[6] = rng.random((90, 130)).astype(np.float32)
+    a = t_gd.global_descriptors(images, device=cuda)
+    b = t_gd.global_descriptors(images, device="cpu")
+    for i in images:
+        np.testing.assert_allclose(a[i], b[i], rtol=1e-5,
+                                   atol=1e-5 * np.abs(b[i]).max())
+    x = _clustered(n=1200, dim=128, seed=3)
+    descs = {i: x[i * 200:(i + 1) * 200] for i in range(6)}
+    masks = {i: np.arange(200) % 7 != 0 for i in range(6)}
+    a = t_gd.vlad_descriptors(descs, masks, k=16, device=cuda)
+    b = t_gd.vlad_descriptors(descs, masks, k=16, device="cpu")
+    for i in descs:
+        np.testing.assert_allclose(np.sign(a[i]) * a[i] ** 2,
+                                   np.sign(b[i]) * b[i] ** 2, rtol=0,
+                                   atol=1e-7)
+
+
+def test_sift_dsp_and_affine_on_the_card_equal_the_cpu(cuda):
+    """domain_size_pooling and estimate_affine_shape on the card against
+    the CPU port: the same valid slots; positions within 1e-3 px;
+    descriptors (squared, as tests/test_torch_sift.py holds them) within
+    1e-5 where the orientations agree and the keypoint moved by at most
+    1e-4 px; then two runs on the card give the same bits."""
+    from dagsfm_tpu_torch.features import sift as t_sift
+    sc = t_syn.generate(t_syn.SyntheticSceneSpec(
+        num_cameras=2, num_points=50, image_width=320, image_height=240,
+        focal=343.0, seed=4, ring_radius=9.0, point_cloud_extent=3.5))
+    images = t_syn.render_images(sc, device="cpu")
+    batch = torch.as_tensor(np.stack([images[i] for i in sorted(images)]))
+    opts = t_sift.SiftOptions(max_num_features=512, domain_size_pooling=True,
+                              estimate_affine_shape=True)
+    c = t_sift.extract(batch, opts)
+    g, g2 = (t_sift.extract(batch.to(cuda), opts) for _ in range(2))
+    for name, v in g._asdict().items():
+        assert torch.equal(v, getattr(g2, name)), name
+    m = c.mask.numpy()
+    assert m.sum() > 100
+    np.testing.assert_array_equal(g.mask.cpu().numpy(), m)
+    dxy = np.abs(g.xy.cpu().numpy() - c.xy.numpy()).max(-1)
+    assert dxy[m].max() < 1e-3
+    dori = np.abs(np.angle(np.exp(1j * (g.orientation.cpu().numpy()
+                                        - c.orientation.numpy()))))
+    keep = m & (dori < 1e-6) & (dxy <= 1e-4)
+    assert keep.sum() >= 0.95 * m.sum()
+    np.testing.assert_allclose(g.descriptor.cpu().numpy()[keep] ** 2,
+                               c.descriptor.numpy()[keep] ** 2, rtol=0,
+                               atol=1e-5)

@@ -62,7 +62,9 @@ def test_cli_runs_without_jax_or_reference():
     guard: argparse exits 0 after printing the usage."""
     head = _GUARD.split("import dagsfm_tpu_torch")[0]
     for argv in ([], ["local_sfm_worker"], ["local_matching_worker"],
-                 ["distributed_mapper"]):
+                 ["distributed_mapper"], ["vocab_tree_builder"],
+                 ["vocab_tree_retriever"], ["spatial_matcher"],
+                 ["transitive_matcher"]):
         out = _run(head + (
             "import runpy\n"
             f"sys.argv = ['dagsfm_tpu_torch'] + {argv!r} + ['--help']\n"

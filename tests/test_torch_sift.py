@@ -37,6 +37,7 @@ from dagsfm_tpu_torch.scene import synthetic as t_syn
 torch.set_num_threads(1)
 
 XY_TOL, DESC_TOL = 1e-3, 1e-4
+AFFINE_XY, AFFINE_SHARE = 1e-4, 0.05
 
 
 def blob_image(H, W, num_blobs=30, seed=0):
@@ -80,7 +81,12 @@ def _desc_close(port, ref):
     np.testing.assert_allclose(port ** 2, ref ** 2, rtol=0, atol=1e-5)
 
 
-def _compare(jf, tf):
+def _compare(jf, tf, affine=False):
+    """With `affine`, a keypoint whose position differs by more than
+    AFFINE_XY (the refinement's amplified f32 gap) is counted, at most
+    AFFINE_SHARE of them, and its descriptor not compared: its affine
+    shape may stretch the sampling grid up to 178x along one axis (the
+    small eigenvalue at its 1e-9 floor), which multiplies that gap."""
     jf = [np.asarray(a) for a in jf]
     tf = [a.numpy() for a in tf]
     np.testing.assert_array_equal(tf[5], jf[5])               # mask
@@ -88,6 +94,12 @@ def _compare(jf, tf):
     assert m.sum() > 20
     np.testing.assert_allclose(tf[0][m], jf[0][m], rtol=0, atol=XY_TOL)
     same = _same_orientation(tf[2], jf[2], m)
+    if affine:
+        moved = m & (np.abs(tf[0] - jf[0]).max(-1) > AFFINE_XY)
+        print(f"affine: {int(moved.sum())} of {int(m.sum())} keypoints "
+              f"moved by more than {AFFINE_XY} px")
+        assert moved.sum() <= AFFINE_SHARE * m.sum()
+        same &= ~moved
     _desc_close(tf[4][same], jf[4][same])
     np.testing.assert_allclose(tf[3][m], jf[3][m], rtol=0, atol=1e-6)
     np.testing.assert_allclose(tf[1][m], jf[1][m], rtol=1e-3)
@@ -121,9 +133,50 @@ def test_upright_fixed_octaves_and_options():
     _compare(j_sift.extract(jnp.asarray(imgs), jopts),
              t_sift.extract(torch.as_tensor(imgs),
                             interop.sift_options(jopts._asdict())))
-    with pytest.raises(NotImplementedError):
-        t_sift.extract(torch.as_tensor(imgs),
-                       t_sift.SiftOptions(domain_size_pooling=True))
+    # the options that were not ported before run now, and are the
+    # reference's (test_dsp_and_affine_shape_match_reference below)
+    jopts = jopts._replace(domain_size_pooling=True, dsp_num_scales=3)
+    _compare(j_sift.extract(jnp.asarray(imgs), jopts),
+             t_sift.extract(torch.as_tensor(imgs),
+                            interop.sift_options(jopts._asdict())))
+
+
+@pytest.mark.parametrize("dsp,affine,images", [
+    (True, False, "blobs"), (False, True, "blobs"), (True, True, "render")])
+def test_dsp_and_affine_shape_match_reference(dsp, affine, images):
+    """Domain-size pooling (the raw histograms averaged over
+    dsp_num_scales domain sizes, then normalised) and the one-shot affine
+    shape, alone and together, on test_extract_matches_reference's
+    images."""
+    if images == "blobs":
+        imgs = np.stack([blob_image(128, 128, seed=s) for s in (0, 1)])
+    else:
+        _, tsc = _scene(160, 120, n_cam=1)
+        imgs = t_syn.render_images(tsc, device="cpu")[1][None]
+    jopts = j_sift.SiftOptions(max_num_features=384,
+                               domain_size_pooling=dsp,
+                               estimate_affine_shape=affine)
+    jf = j_sift.extract(jnp.asarray(imgs), jopts)
+    tf = t_sift.extract(torch.as_tensor(imgs),
+                        interop.sift_options(jopts._asdict()))
+    _compare(jf, tf, affine=affine)
+    plain = t_sift.extract(torch.as_tensor(imgs),
+                           t_sift.SiftOptions(max_num_features=384))
+    m = tf.mask.numpy()
+    gap = np.abs(tf.descriptor.numpy()[m] - plain.descriptor.numpy()[m])
+    assert gap.max() > 0.05                  # the option changes them
+
+
+def test_dsp_scales_are_jnp_linspace():
+    """Within 4 ulps of the reference's jnp.linspace (numpy's and XLA's
+    linspace round apart, as for the focal grid)."""
+    for n, a, b in ((10, 1.0 / 6.0, 3.0), (4, 0.5, 2.0), (1, 0.3, 3.0),
+                    (17, 0.1, 2.9)):
+        opts = t_sift.SiftOptions(dsp_num_scales=n, dsp_min_scale=a,
+                                  dsp_max_scale=b)
+        np.testing.assert_array_max_ulp(t_sift._dsp_scales(opts),
+                                        np.asarray(jnp.linspace(a, b, n)),
+                                        maxulp=4)
 
 
 @pytest.mark.parametrize("shape", [(64, 80), (240, 320), (50, 71)])

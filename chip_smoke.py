@@ -36,17 +36,33 @@ any error:
      BA refines f and k1) -> COLMAP model, held to
      tests/test_e2e_distorted.py's limits carried to 70 images (at
      least 59 registered);
-  7. the entry-point path: top2_batch and match_one_pair on the
+  7. the dense path, on the distorted path's model and images:
+     undistort_reconstruction and undistort_image on every registered
+     image (undistorted keypoints taken back through the camera must
+     land on the originals); `python -m dagsfm_tpu_torch
+     image_undistorter` in two processes, COLMAP and PMVS (the same
+     model and files as in this process); dense_reconstruct at the
+     default DenseOptions (64 depths, window radius 2, 5 iterations,
+     top-2 of 4 sources) with every registered image a reference view,
+     depth and normal maps and fused.ply in a workspace, the fusion
+     voxel set from the sparse points for 10^5-10^6 fused points;
+     `poisson_mesher` and `delaunay_mesher` in two processes on
+     fused.ply, and Poisson twice in this process (bit for bit, and
+     equal to the command's file); gated on the rendered sphere: the
+     depth maps against the ray-sphere depth, the fused points and the
+     Poisson vertices by |r - R| / R after synthetic.pose_errors'
+     Sim(3), and peak device memory (no kernel launches here);
+  8. the entry-point path: top2_batch and match_one_pair on the
      distorted path's descriptors; then they, K3's forward and reverse
      top2 on the pair (3,712 x 3,712, to the bit), and K1 on the
      distorted path's first 128-pair batch, against their plain versions
      on the same inputs;
-  8. the planted path, cut to 40 images (100 until the distributed
+  9. the planted path, cut to 40 images (100 until the distributed
      path joined): a planted scene through
      FeaturePipeline.match_and_verify -> to_mapper_inputs ->
      IncrementalMapper.reconstruct -> write_model_bin, scored against
      ground truth;
-  9. the distributed path: a 200-image ring whose points each lie in 16
+  10. the distributed path: a 200-image ring whose points each lie in 16
      consecutive views, planted features -> FeaturePipeline (19,900
      pairs, 156 K1 launches, essential-only) -> 20 of the pose edges
      turned by 30 degrees -> DistributedMapperController (the view-graph
@@ -54,7 +70,7 @@ any error:
      images before expansion, merge, final BA with track selection) ->
      write_model_bin, held to tests/test_pipeline.py's limits carried
      to 200 images;
-  10. the database path: COLMAP's workflow at one cluster's size, two
+  11. the database path: COLMAP's workflow at one cluster's size, two
      disconnected planted scenes of 50 images (the second's ids from
      1001) in one database: FeaturePipeline writes it (4,950 pairs, 39
      K1 launches), a fresh FeaturePipeline.run resumes from it (no
@@ -64,7 +80,7 @@ any error:
      matches 470 ring pairs on a second database that holds features
      only (4 K1 launches); K1 is then held against its plain version at
      that database's K;
-  11. the retrieval path: tests/test_e2e_scale.py at its 100 rendered
+  12. the retrieval path: tests/test_e2e_scale.py at its 100 rendered
      images of 256 x 192 (SIFT 512, sequential pairs with BoW loop
      closure, essential-only verification, DistributedMapperController
      in clusters of at most 30), held to that test's gates (at least 90
@@ -74,11 +90,11 @@ any error:
      features with ground-truth location priors, in this process,
      vocab_tree_builder, vocab_tree_retriever, spatial_matcher (its rows
      the verified spatial pairs of the priors) and transitive_matcher;
-  12. the BA path: bundle adjustment with the iterative PCG solver at
+  13. the BA path: bundle adjustment with the iterative PCG solver at
      bench_suite.py's 1,000 cameras and 50,000 points, first refining a
      perturbed SIMPLE_RADIAL camera's f and k1 (joint PCG), then 5 LM
      iterations of the plain pinhole solve, timed;
-  13. the parallel path: the distributed path's clusters as mapping jobs
+  14. the parallel path: the distributed path's clusters as mapping jobs
      for two `python -m dagsfm_tpu_torch local_sfm_worker` processes on
      the one card, then a fresh controller that resumes from their
      partitions and runs the sharded final BA over NCCL (one rank, one
@@ -142,6 +158,24 @@ PAR_FEATURES = 1024      # local_matching_worker's default
 SCALE_IMAGES = 100       # the retrieval path: tests/test_e2e_scale.py's ring
 SCALE_SPATIAL_NEIGHBORS = 4  # spatial_matcher's --max_num_neighbors there
 MODE_NEIGHBORS = 10      # num_neighbors of the retrieval path's step (b)
+DENSE_VOXELS = 120       # the dense path's fusion voxel: the sparse points'
+#                          median radius over this many, for a fused
+DENSE_POINTS = (1e5, 1e6)  # cloud of this many points
+# the dense path's gates, their limits written before its first run on
+# the card: depth maps on the pixels that see the sphere at a ray-normal
+# cosine above DENSE_MIN_COS and sample inside the source image; fused
+# points and Poisson vertices by |r - R| / R in the truth's frame, over
+# the fused points from pixels that see the sphere and the Poisson mesh
+# of those points (a fused point of a background pixel has no true
+# position; PERF.md section 6 has the first run, which counted them):
+# (tolerance, the median's limit, the least share within the tolerance)
+DENSE_MIN_COS = 0.3
+DENSE_BACKGROUND = 0.15   # render_images' background (its default)
+DENSE_DEPTH_TOL, DENSE_DEPTH_MEDIAN, DENSE_DEPTH_SHARE = 0.02, 0.01, 0.6
+DENSE_POINTS_TOL, DENSE_POINTS_MEDIAN, DENSE_POINTS_SHARE = 0.02, 0.015, 0.6
+DENSE_POISSON_TOL, DENSE_POISSON_MEDIAN, DENSE_POISSON_SHARE = 0.02, 0.01, 0.8
+DENSE_PEAK_GIB = 40.0
+
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 FMA outside
 # the tensor cores, HBM3
@@ -1087,7 +1121,8 @@ def _angle_deg(R1, R2) -> float:
 def pixel_path(dev, card: str, num_images: int, max_features: int,
                W: int = 1024, H: int = 768, distorted: bool = False):
     """Rendered pixels to a COLMAP model: returns (launch counts, the
-    FeaturePipeline). `distorted`: the images are rendered through a
+    FeaturePipeline, the reconstruction, the rendered images, the
+    synthetic scene). `distorted`: the images are rendered through a
     SIMPLE_RADIAL camera (k1 = K1_TRUE) and mapped from one blind
     SIMPLE_RADIAL camera shared by every image (f = 1.2 max(W, H),
     k1 = 0, no prior), as tests/test_e2e_distorted.py's variant B;
@@ -1194,8 +1229,290 @@ def pixel_path(dev, card: str, num_images: int, max_features: int,
           "GiB", flush=True)
     if counts["fused_matcher"] != math.ceil(n_pairs / MATCH_BATCH):
         raise AssertionError(f"{name}: K1 launches {counts}")
-    return counts, fp
+    return counts, fp, rec, images, sc
 
+
+def _round_trip_px(rec, und, dev) -> float:
+    """Largest pixel distance between a keypoint of `rec` and its
+    undistorted keypoint in `und` taken back through rec's camera: the
+    undistorted pinhole ray projected with the original model."""
+    from dagsfm_tpu_torch.scene import cameras as cm
+    worst = 0.0
+    for i, im in rec.images.items():
+        cam = rec.cameras[im.camera_id]
+        K = und.cameras[im.camera_id].calibration_matrix()
+        uv = (und.images[i].xys - K[:2, 2]) / np.diag(K)[:2]
+        back = cm.img_from_cam(cam.model_id, cm.pad_params(
+            cam.params, cam.model_id).to(dev), torch.as_tensor(np.concatenate(
+                [uv, np.ones((len(uv), 1))], 1), device=dev))
+        worst = max(worst, float(torch.linalg.norm(back - torch.as_tensor(
+            im.xys, device=dev), dim=1).max()))
+    return worst
+
+
+def _sphere_depth(K, R, t, center, radius, H: int, W: int, dev):
+    """(H, W) camera-frame depth of the first ray-sphere hit of each pixel
+    of the pinhole camera (K, R, t) and the cosine between the ray and the
+    surface normal there (0 where the ray misses), float64 on `dev`."""
+    T = (lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev))
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float64, device=dev),
+                            torch.arange(W, dtype=torch.float64, device=dev),
+                            indexing="ij")
+    d_cam = torch.stack([xs, ys, torch.ones_like(xs)], -1) @ T(
+        np.linalg.inv(K)).T
+    d = d_cam @ T(R)                                  # world directions
+    oc = T(-R.T @ t - center)
+    a = torch.sum(d * d, -1)
+    b = 2.0 * (d @ oc)
+    c = oc @ oc - radius ** 2
+    disc = b * b - 4 * a * c
+    lam = (-b - torch.sqrt(torch.clamp(disc, min=0.0))) / (2 * a)
+    hit = (disc > 0) & (lam > 0)
+    nrm = (oc + lam[..., None] * d) / radius
+    cos = -torch.sum(nrm * d, -1) / torch.sqrt(a)
+    return torch.where(hit, lam, 0.0), torch.where(hit, cos, 0.0)
+
+
+def _radius_errors(xyz: np.ndarray, sim: tuple, radius: float) -> np.ndarray:
+    """|‖X‖ - r| / r of points moved into the truth's frame by the Sim(3)
+    (s, R, t): the synthetic sphere is centred at the origin."""
+    s, R, t = sim
+    return np.abs(np.linalg.norm(s * xyz @ R.T + t, axis=1) - radius) / radius
+
+
+def dense_path(dev, card: str, rec, images: dict, sc) -> dict:
+    """Dense reconstruction of the distorted path's model and images: the
+    undistorted model and images; `image_undistorter` in processes (COLMAP
+    and PMVS), beside the in-process steps; `dense_reconstruct` at the
+    default DenseOptions with every registered image as a reference view,
+    its fusion voxel DENSE_VOXELS times smaller than the sparse points'
+    median radius; `poisson_mesher` and `delaunay_mesher` in processes on
+    the fused cloud, and Poisson twice in this process on it (bit for bit,
+    and equal to poisson_mesher's file) and once on its points from pixels
+    that see the sphere. Gated on the rendered sphere (the depth maps on
+    the pixels that see it; the fused points from such pixels and the
+    Poisson vertices of those points against its radius, after the Sim(3)
+    of synthetic.pose_errors) and on peak device memory. Returns the
+    launch counts (no kernel runs here)."""
+    import os
+    from dagsfm_tpu_torch.mvs import controller as mvs_ctl
+    from dagsfm_tpu_torch.mvs import fusion
+    from dagsfm_tpu_torch.mvs import io as mvs_io
+    from dagsfm_tpu_torch.mvs import meshing
+    from dagsfm_tpu_torch.mvs.poisson import poisson_mesh
+    from dagsfm_tpu_torch.ops import rotations as rops
+    from dagsfm_tpu_torch.scene import exporters
+    from dagsfm_tpu_torch.scene import io as scene_io
+    from dagsfm_tpu_torch.scene import synthetic
+    from dagsfm_tpu_torch.scene.undistortion import (undistort_image,
+                                                     undistort_reconstruction)
+
+    reg = rec.reg_image_ids
+    H, W = next(iter(images.values())).shape
+    radius = sc.spec.point_cloud_extent      # render_images' sphere
+    opts0 = mvs_ctl.DenseOptions()
+    print(f"== dense path: the distorted path's model, {len(reg)} registered "
+          f"images of {W} x {H}, DenseOptions() ({opts0.patch_match.num_depths}"
+          f" depths, window radius {opts0.patch_match.window_radius}, "
+          f"{opts0.patch_match.num_iterations} iterations, top-"
+          f"{opts0.patch_match.top_k} of {opts0.max_src_images} sources), "
+          "every registered image a reference view", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()                                    # counts zeroed
+    secs = {}
+
+    def step(name, t0):
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model = os.path.join(tmp, "sparse")
+        os.makedirs(model)
+        scene_io.write_model_bin(rec, model)
+        t_cli = time.perf_counter()
+        procs = {kind: _start_cli(
+            ["image_undistorter", "--input_path", model, "--output_path",
+             os.path.join(tmp, kind), "--output_type", kind],
+            os.path.join(tmp, f"{kind}.log")) for kind in ("COLMAP", "PMVS")}
+
+        t0 = time.perf_counter()
+        und = undistort_reconstruction(rec, device=dev)
+        und_images = {i: undistort_image(
+            images[i], rec.cameras[rec.images[i].camera_id],
+            und.cameras[rec.images[i].camera_id], device=dev) for i in reg}
+        step("undistortion", t0)
+        # the undistorted pixels that sample inside the source image
+        covered = {cid: undistort_image(np.ones((H, W), np.float32), cam,
+                                        und.cameras[cid], device=dev) > 0.999
+                   for cid, cam in rec.cameras.items()}
+        trip = _round_trip_px(rec, und, dev)
+        print(f"  on {card}: undistortion of the model and {len(reg)} images "
+              f"{secs['undistortion']:.3f} s; undistorted keypoints back "
+              f"through {next(iter(rec.cameras.values())).model_name}: at "
+              f"most {trip:.3e} px from the originals", flush=True)
+        if not trip < 1e-6:
+            raise AssertionError(f"dense path: undistorted keypoints {trip} "
+                                 "px off the originals")
+
+        pts = np.stack([p.xyz for p in und.points3D.values()])
+        voxel = float(np.median(np.linalg.norm(pts - pts.mean(0), axis=1))
+                      / DENSE_VOXELS)
+        opts = opts0._replace(fusion=fusion.FusionOptions(voxel_size=voxel))
+        ws = os.path.join(tmp, "dense")
+        fuse_secs = []
+        fuse = fusion.fuse
+
+        def timed_fuse(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fuse(*a, **k)
+            fuse_secs.append(time.perf_counter() - t)
+            return out
+        fusion.fuse = timed_fuse
+        try:
+            t0 = time.perf_counter()
+            fused = mvs_ctl.dense_reconstruct(und, und_images, ws, opts,
+                                              seed=0, device=dev)
+            step("dense_reconstruct", t0)
+        finally:
+            fusion.fuse = fuse
+        secs["fusion"] = fuse_secs[0]
+        maps_s = secs["dense_reconstruct"] - secs["fusion"]
+        n_pts = len(fused["xyz"])
+        print(f"  on {card}: dense_reconstruct {secs['dense_reconstruct']:.3f}"
+              f" s: depth and normal maps {maps_s:.3f} s ({len(reg) / maps_s:.3f}"
+              f" views/s), fusion {secs['fusion']:.3f} s ({len(reg)} x "
+              f"{len(reg) - 1} consistency checks); voxel_size {voxel:.6f} "
+              f"-> {n_pts} fused points", flush=True)
+        if not DENSE_POINTS[0] <= n_pts <= DENSE_POINTS[1]:
+            raise AssertionError(f"dense path: {n_pts} fused points")
+
+        for kind, p in procs.items():
+            print("  " + _finish_cli(p, 600, f"image_undistorter {kind}")
+                  .strip().splitlines()[-1], flush=True)
+        secs["image_undistorter"] = time.perf_counter() - t_cli
+        back = scene_io.read_model_bin(os.path.join(tmp, "COLMAP", "sparse"))
+        if back.cameras != und.cameras or any(
+                not np.array_equal(back.images[i].xys, und.images[i].xys)
+                for i in und.images):
+            raise AssertionError("image_undistorter's COLMAP model differs "
+                                 "from undistort_reconstruction's")
+        exporters.write_pmvs_workspace(und, os.path.join(tmp, "pmvs_ref"))
+        for f in ["vis.dat", "option-all"] + [
+                os.path.join("txt", f"{k:08d}.txt") for k in range(len(reg))]:
+            with open(os.path.join(tmp, "PMVS", f), "rb") as a, \
+                    open(os.path.join(tmp, "pmvs_ref", f), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"image_undistorter PMVS: {f}")
+        print(f"  on {card}: image_undistorter COLMAP and PMVS, two "
+              f"processes started before the undistortion, "
+              f"{secs['image_undistorter']:.3f} s wall; the sparse model and "
+              "the PMVS files equal this process's", flush=True)
+
+        ply = os.path.join(ws, "fused.ply")
+        t_mesh = time.perf_counter()
+        procs = {name: _start_cli(
+            [name, "--input_path", ply, "--output_path",
+             os.path.join(tmp, f"{name}.ply")], os.path.join(tmp, name + ".log"))
+            for name in ("poisson_mesher", "delaunay_mesher")}
+
+        # the gates: depth maps on the pixels that see the sphere
+        sim = synthetic.align_to_truth(und, sc)
+        s_, R_, t_ = sim
+        center = R_.T @ (-t_) / s_
+        rel = []
+        for i in reg:
+            im = und.images[i]
+            K = und.cameras[im.camera_id].calibration_matrix()
+            truth, cos = _sphere_depth(K, rops.quat_to_rotmat_np(im.qvec),
+                                       im.tvec, center, radius / s_, H, W,
+                                       dev)
+            depth = torch.as_tensor(mvs_io.read_map_bin(mvs_io.depth_map_path(
+                ws, im.name)), dtype=torch.float64, device=dev)
+            sel = (cos > DENSE_MIN_COS) & torch.as_tensor(
+                covered[im.camera_id], device=dev)
+            rel.append((torch.abs(depth - truth) / truth)[sel])
+        rel = torch.cat(rel).cpu().numpy()
+        # fused points from pixels that see the sphere: the renderer paints
+        # every other pixel DENSE_BACKGROUND, the undistortion fills what
+        # the source image does not cover with 0 (the bilinear warp keeps
+        # a flat region's value to within an ulp or two)
+        col = fused["color"]
+        seen = (np.abs(col - DENSE_BACKGROUND) > 1e-6) & (col > 1e-6)
+        pts_rel = _radius_errors(fused["xyz"], sim, radius)
+        gates = {
+            "depth: median relative error": (np.median(rel), DENSE_DEPTH_MEDIAN),
+            f"depth: share within {DENSE_DEPTH_TOL}": (
+                np.mean(rel < DENSE_DEPTH_TOL), DENSE_DEPTH_SHARE),
+            "fused points of the sphere: median |r - R| / R": (
+                np.median(pts_rel[seen]), DENSE_POINTS_MEDIAN),
+            f"fused points of the sphere: share within {DENSE_POINTS_TOL}": (
+                np.mean(pts_rel[seen] < DENSE_POINTS_TOL), DENSE_POINTS_SHARE)}
+
+        xyz, nrm = mvs_io.read_ply_points(ply)
+        meshes = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            meshes.append(poisson_mesh(xyz, nrm, device=dev))
+            step("poisson_mesh", t0)
+        (v1, f1), (v2, f2) = meshes
+        if not (np.array_equal(v1, v2) and np.array_equal(f1, f2)):
+            raise AssertionError("dense path: two Poisson meshes of one "
+                                 "cloud differ")
+        v_seen, _ = poisson_mesh(xyz[seen], nrm[seen], device=dev)
+        for name, p in procs.items():
+            print("  " + _finish_cli(p, 600, name).strip().splitlines()[-1],
+                  flush=True)
+        secs["meshers"] = time.perf_counter() - t_mesh
+        meshing.write_ply_mesh(os.path.join(tmp, "poisson_ref.ply"), v1, f1)
+        with open(os.path.join(tmp, "poisson_mesher.ply"), "rb") as a, \
+                open(os.path.join(tmp, "poisson_ref.ply"), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("dense path: poisson_mesher's mesh "
+                                     "differs from this process's")
+        with open(os.path.join(tmp, "delaunay_mesher.ply"), "rb") as f:
+            head = f.read(400).split(b"end_header")[0].decode()
+        n_tris = int(head.split("element face ")[1].split()[0])
+        if f"element vertex {n_pts}\n" not in head:
+            raise AssertionError(f"delaunay_mesher's mesh: {head}")
+    v_rel = _radius_errors(v_seen, sim, radius)
+    gates["Poisson vertices of the sphere's points: median |r - R| / R"] = (
+        np.median(v_rel), DENSE_POISSON_MEDIAN)
+    gates["Poisson vertices of the sphere's points: share within "
+          f"{DENSE_POISSON_TOL}"] = (np.mean(v_rel < DENSE_POISSON_TOL),
+                                     DENSE_POISSON_SHARE)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gates["peak device memory, GiB"] = (peak, DENSE_PEAK_GIB)
+    counts = _counts()                                # counts read
+    all_rel = _radius_errors(v1, sim, radius)
+    print(f"  on {card}: meshers (poisson_mesher and delaunay_mesher, two "
+          f"processes started after the fusion) {secs['meshers']:.3f} s "
+          f"wall; Poisson in this process {secs['poisson_mesh']:.3f} s (the "
+          f"second of two runs), {len(v1)} vertices, {len(f1)} triangles, "
+          "equal bit for bit over two runs and to poisson_mesher's file; "
+          f"Delaunay {n_tris} triangles on {n_pts} points", flush=True)
+    print(f"  fused points from background pixels {np.mean(~seen):.4f} of "
+          f"{n_pts}; over all fused points |r - R| / R median "
+          f"{np.median(pts_rel):.6f}, share within {DENSE_POINTS_TOL} "
+          f"{np.mean(pts_rel < DENSE_POINTS_TOL):.6f}; over the vertices of "
+          f"the whole cloud's Poisson mesh median {np.median(all_rel):.6f}, "
+          f"share within {DENSE_POISSON_TOL} "
+          f"{np.mean(all_rel < DENSE_POISSON_TOL):.6f}", flush=True)
+    failed = []
+    for name, (value, limit) in gates.items():
+        share = "share" in name
+        ok = value >= limit if share else value < limit
+        print(f"  gate {name}: {value:.6f} ({'>=' if share else '<'} "
+              f"{limit}) {'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            failed.append(name)
+    print(f"  on {card}: dense path {time.perf_counter() - t_cli:.3f} s "
+          "(steps " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+          + f"); kernel launches {counts}", flush=True)
+    if failed:
+        raise AssertionError(f"dense path: gates failed {failed}")
+    return counts
 
 def ba_path(dev, card: str, num_cameras: int = 1000,
             num_points: int = 50000) -> dict:
@@ -2149,12 +2466,14 @@ def main() -> int:
               f"{args.max_features} (default 8192)", flush=True)
     print(f"== pixel path cut to {PIXEL_IMAGES} images (50 until the "
           "parallel path joined, 100 before the distorted path)", flush=True)
-    pixel, _ = pixel_path(dev, card, PIXEL_IMAGES, args.max_features)
+    pixel, *_ = pixel_path(dev, card, PIXEL_IMAGES, args.max_features)
     print(f"== distorted path cut to {DISTORTED_IMAGES} images (80 until "
           "the retrieval path joined, 100 until the distributed path did)",
           flush=True)
-    distorted, fp = pixel_path(dev, card, DISTORTED_IMAGES,
-                               args.max_features, distorted=True)
+    distorted, fp, rec, images, sc = pixel_path(
+        dev, card, DISTORTED_IMAGES, args.max_features, distorted=True)
+    dense = dense_path(dev, card, rec, images, sc)
+    del rec, images, sc
     entry = entry_path(fp, dev, card)
     modes = pair_modes_step(fp, dev, card)
     del fp
@@ -2170,7 +2489,7 @@ def main() -> int:
     parallel = parallel_path(dev, card, dist_state, ba_state)
     del dist_state, ba_state
     paths = {"tool": tool, "planted": planted, "pixel": pixel,
-             "distorted": distorted, "entry": entry, "distributed": dist,
+             "distorted": distorted, "dense": dense, "entry": entry, "distributed": dist,
              "database": database, "retrieval": retrieval, "ba": bapath,
              "parallel": parallel}
     for e, path in ((k1, "distorted"), (k2, "entry"), (k3, "entry"),

@@ -26,6 +26,11 @@ from dagsfm_tpu_torch.features import visual_index as vi
 from dagsfm_tpu_torch.features.matching import (DescriptorBank,
                                                 MatchingOptions, make_bank)
 from dagsfm_tpu_torch.graph.view_graph import TwoViewEdge, ViewGraph
+from dagsfm_tpu_torch.mvs import controller as mvs_controller
+from dagsfm_tpu_torch.mvs import fusion as mvs_fusion
+from dagsfm_tpu_torch.mvs import meshing as mvs_meshing
+from dagsfm_tpu_torch.mvs import patch_match as mvs_pm
+from dagsfm_tpu_torch.mvs import poisson as mvs_poisson
 from dagsfm_tpu_torch.ops import two_view_classify as tvc
 from dagsfm_tpu_torch.parallel.ba_sharded import (ShardedBAProblem,
                                                   problem_from_numpy)
@@ -39,6 +44,7 @@ from dagsfm_tpu_torch.scene.reconstruction import (ImageRecord, Point3DRecord,
                                                    scene_arrays_from_numpy)
 from dagsfm_tpu_torch.scene.reconstruction_manager import \
     ReconstructionManager
+from dagsfm_tpu_torch.scene.undistortion import UndistortOptions
 from dagsfm_tpu_torch.sfm import bundle_adjustment as ba
 from dagsfm_tpu_torch.sfm.aligner import AlignerOptions
 from dagsfm_tpu_torch.sfm.incremental_mapper import MapperOptions
@@ -258,3 +264,39 @@ def feature_pipeline_options(fields: dict) -> FeaturePipelineOptions:
     if "retrieval" in f:
         f["retrieval"] = retrieval_options(_plain(f["retrieval"]))
     return FeaturePipelineOptions(**f)
+
+
+def patch_match_options(fields: dict) -> mvs_pm.PatchMatchOptions:
+    """PatchMatchOptions from the reference's `PatchMatchOptions._asdict()`."""
+    return mvs_pm.PatchMatchOptions(**fields)
+
+
+def fusion_options(fields: dict) -> mvs_fusion.FusionOptions:
+    """FusionOptions from the reference's `FusionOptions._asdict()`."""
+    return mvs_fusion.FusionOptions(**fields)
+
+
+def dense_options(fields: dict) -> mvs_controller.DenseOptions:
+    """DenseOptions from the reference's `DenseOptions._asdict()` (its
+    PatchMatch and fusion options as dicts or NamedTuples)."""
+    f = dict(fields)
+    if "patch_match" in f:
+        f["patch_match"] = patch_match_options(_plain(f["patch_match"]))
+    if "fusion" in f:
+        f["fusion"] = fusion_options(_plain(f["fusion"]))
+    return mvs_controller.DenseOptions(**f)
+
+
+def poisson_options(fields: dict) -> mvs_poisson.PoissonOptions:
+    """PoissonOptions from the reference's `PoissonOptions._asdict()`."""
+    return mvs_poisson.PoissonOptions(**fields)
+
+
+def meshing_options(fields: dict) -> mvs_meshing.MeshingOptions:
+    """MeshingOptions from the reference's `MeshingOptions._asdict()`."""
+    return mvs_meshing.MeshingOptions(**fields)
+
+
+def undistort_options(fields: dict) -> UndistortOptions:
+    """UndistortOptions from the reference's `dataclasses.asdict(...)`."""
+    return UndistortOptions(**fields)

@@ -18,7 +18,17 @@ and those of pair selection on a database of features:
   transitive_matcher     match and verify the transitive closure of the
                          verified pairs
 
-Every command takes `--device` (default `cuda`; `cpu` runs on the CPU).
+and those of the dense path:
+
+  image_undistorter      a model's cameras and keypoints to PINHOLE, as a
+                         COLMAP model or a PMVS / CMP-MVS workspace
+  model_converter        a model as BIN, TXT, PLY, NVM or Bundler
+  poisson_mesher         a fused point cloud with normals -> Poisson mesh
+  delaunay_mesher        a fused point cloud -> Delaunay surface mesh
+
+Every command that computes on a device takes `--device` (default
+`cuda`; `cpu` runs on the CPU); model_converter and delaunay_mesher run
+on the host alone.
 """
 
 from __future__ import annotations
@@ -202,15 +212,93 @@ def cmd_transitive_matcher(args):
     print(f"transitive matching: {total} new pairs verified")
 
 
+def _read_model(path: str):
+    from dagsfm_tpu_torch.scene import io as scene_io
+    if os.path.exists(os.path.join(path, "cameras.bin")):
+        return scene_io.read_model_bin(path)
+    return scene_io.read_model_text(path)
+
+
+def cmd_model_converter(args):
+    """A .bin or text model written as BIN, TXT, PLY, NVM or Bundler (with
+    its image list as <output_path>.list.txt)."""
+    from dagsfm_tpu_torch.scene import exporters
+    from dagsfm_tpu_torch.scene import io as scene_io
+    rec = _read_model(args.input_path)
+    writers = {
+        "BIN": scene_io.write_model_bin, "TXT": scene_io.write_model_text,
+        "PLY": scene_io.write_model_ply, "NVM": exporters.write_nvm,
+        "Bundler": lambda r, p: exporters.write_bundler(
+            r, p, p + ".list.txt")}
+    if args.output_type not in writers:
+        raise SystemExit(f"unknown output_type {args.output_type}")
+    writers[args.output_type](rec, args.output_path)
+    print(f"converted -> {args.output_path} ({args.output_type})")
+
+
+def cmd_image_undistorter(args):
+    """A .bin model's cameras and keypoints undistorted to PINHOLE, written
+    as a COLMAP model under <output_path>/sparse, or as a PMVS or CMP-MVS
+    workspace's metadata."""
+    from dagsfm_tpu_torch.scene import exporters
+    from dagsfm_tpu_torch.scene import io as scene_io
+    from dagsfm_tpu_torch.scene.undistortion import undistort_reconstruction
+    rec = scene_io.read_model_bin(args.input_path)
+    und = undistort_reconstruction(rec, device=args.device)
+    os.makedirs(args.output_path, exist_ok=True)
+    if args.output_type == "PMVS":
+        exporters.write_pmvs_workspace(und, args.output_path)
+    elif args.output_type == "CMP-MVS":
+        exporters.write_cmpmvs_workspace(und, args.output_path)
+    else:
+        sparse = os.path.join(args.output_path, "sparse")
+        os.makedirs(sparse, exist_ok=True)
+        scene_io.write_model_bin(und, sparse)
+    print(f"undistorted -> {args.output_path} ({args.output_type})")
+
+
+def cmd_poisson_mesher(args):
+    """A fused PLY point cloud with normals -> Poisson mesh PLY (the
+    spectral grid solver of mvs/poisson.py)."""
+    from dagsfm_tpu_torch.mvs import io as mvs_io
+    from dagsfm_tpu_torch.mvs import meshing
+    from dagsfm_tpu_torch.mvs.poisson import PoissonOptions, poisson_mesh
+    xyz, normals = mvs_io.read_ply_points(args.input_path)
+    if normals is None:
+        raise SystemExit("poisson_mesher needs a PLY with nx/ny/nz "
+                         "normals (run stereo_fusion first)")
+    verts, tris = poisson_mesh(
+        xyz, normals, PoissonOptions(grid=args.grid, screen=args.screen,
+                                     smooth_sigma=args.smooth),
+        device=args.device)
+    meshing.write_ply_mesh(args.output_path, verts, tris)
+    print(f"poisson mesh: {len(verts)} vertices, {len(tris)} triangles "
+          f"-> {args.output_path}")
+
+
+def cmd_delaunay_mesher(args):
+    """A fused PLY point cloud -> Delaunay surface mesh PLY."""
+    from dagsfm_tpu_torch.mvs import io as mvs_io
+    from dagsfm_tpu_torch.mvs import meshing
+    xyz, _normals = mvs_io.read_ply_points(args.input_path)
+    verts, tris = meshing.delaunay_mesh(
+        xyz, meshing.MeshingOptions(max_edge_factor=args.max_edge_factor))
+    meshing.write_ply_mesh(args.output_path, verts, tris)
+    print(f"delaunay mesh: {len(verts)} vertices, {len(tris)} triangles "
+          f"-> {args.output_path}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dagsfm_tpu_torch",
         description="Distributed Structure-from-Motion on PyTorch / CUDA")
     sub = p.add_subparsers(dest="command", required=True)
 
-    def add(name, fn, flags):
+    def add(name, fn, flags, device=True):
         sp = sub.add_parser(name)
-        for f, kw in flags + [("--device", dict(default="cuda"))]:
+        if device:
+            flags = flags + [("--device", dict(default="cuda"))]
+        for f, kw in flags:
             sp.add_argument(f, **kw)
         sp.set_defaults(func=fn)
 
@@ -264,6 +352,28 @@ def build_parser() -> argparse.ArgumentParser:
         ("--batch_size", dict(type=int, default=1000)),
         ("--num_iterations", dict(type=int, default=3)),
     ])
+    add("image_undistorter", cmd_image_undistorter, [
+        ("--input_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+        ("--output_type", dict(default="COLMAP")),
+    ])
+    add("model_converter", cmd_model_converter, [
+        ("--input_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+        ("--output_type", dict(default="TXT")),
+    ], device=False)
+    add("poisson_mesher", cmd_poisson_mesher, [
+        ("--input_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+        ("--grid", dict(type=int, default=128)),
+        ("--screen", dict(type=float, default=4.0)),
+        ("--smooth", dict(type=float, default=1.0)),
+    ])
+    add("delaunay_mesher", cmd_delaunay_mesher, [
+        ("--input_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+        ("--max_edge_factor", dict(type=float, default=3.0)),
+    ], device=False)
     return p
 
 

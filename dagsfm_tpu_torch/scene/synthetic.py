@@ -2,8 +2,9 @@
 scene as dagsfm_tpu/scene/synthetic.py).
 
 Port of `SyntheticSceneSpec`, `generate`, `to_matching_problem`,
-`to_scene_arrays`, `pose_errors` and `render_images` (through the
-scene's pinhole camera or any camera model).
+`to_scene_arrays`, `pose_errors` (and its Sim(3), `align_to_truth`) and
+`render_images` (through the scene's pinhole camera or any camera
+model).
 """
 
 from __future__ import annotations
@@ -139,10 +140,7 @@ def to_scene_arrays(scene: SyntheticScene, device):
         obs_mask=np.ones(len(ii), bool)), device)
 
 
-def pose_errors(rec: Reconstruction, scene: SyntheticScene,
-                align: bool = True) -> dict:
-    """Rotation (deg) and center (ATE) errors against ground truth after a
-    Sim(3) Umeyama alignment of the camera centers."""
+def _registered_centers(rec: Reconstruction, scene: SyntheticScene):
     ids, est_C, gt_C, est_R = [], [], [], []
     centers = scene.centers()
     for i, img in sorted(rec.images.items()):
@@ -154,7 +152,21 @@ def pose_errors(rec: Reconstruction, scene: SyntheticScene,
         est_C.append(-Rcw.T @ img.tvec)
         gt_C.append(centers[k])
         ids.append(k)
-    est_C, gt_C, est_R = np.stack(est_C), np.stack(gt_C), np.stack(est_R)
+    return ids, np.stack(est_C), np.stack(gt_C), np.stack(est_R)
+
+
+def align_to_truth(rec: Reconstruction, scene: SyntheticScene) -> tuple:
+    """(s, R, t): the Sim(3) that `pose_errors` fits, X_truth = s R X + t,
+    by Umeyama on the registered camera centres (needs three)."""
+    _, est_C, gt_C, _ = _registered_centers(rec, scene)
+    return umeyama_np(est_C, gt_C)
+
+
+def pose_errors(rec: Reconstruction, scene: SyntheticScene,
+                align: bool = True) -> dict:
+    """Rotation (deg) and center (ATE) errors against ground truth after a
+    Sim(3) Umeyama alignment of the camera centers."""
+    ids, est_C, gt_C, est_R = _registered_centers(rec, scene)
     s, Rsim, tsim = 1.0, np.eye(3), np.zeros(3)
     if align and len(ids) >= 3:
         s, Rsim, tsim = umeyama_np(est_C, gt_C)

@@ -883,3 +883,198 @@ def test_sift_dsp_and_affine_on_the_card_equal_the_cpu(cuda):
     np.testing.assert_allclose(g.descriptor.cpu().numpy()[keep] ** 2,
                                c.descriptor.numpy()[keep] ** 2, rtol=0,
                                atol=1e-5)
+
+
+# ------------------------------------------------------------ the dense path
+
+def _plane_scene(H=48, W=64, focal=60.0):
+    """A textured plane z = 5 seen by a reference camera and three sources
+    turned and moved a little (no image row or column maps exactly onto
+    another's): (images, K, Rs, ts, true depth of the reference)."""
+    from dagsfm_tpu_torch.ops import rotations as t_rops
+    K = np.array([[focal, 0, W / 2.0], [0, focal, H / 2.0], [0, 0, 1.0]])
+    Rs = [np.eye(3)] + [t_rops.angleaxis_to_rotmat(torch.as_tensor(a)).numpy()
+                        for a in ([0.01, -0.02, 0.015], [-0.015, 0.01, 0.02],
+                                  [0.02, 0.01, -0.01])]
+    ts = [np.zeros(3), np.array([-0.37, 0.02, 0.01]),
+          np.array([0.03, -0.31, 0.02]), np.array([0.29, 0.21, -0.02])]
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    pix = np.stack([xs, ys, np.ones_like(xs)]).reshape(3, -1).astype(float)
+    imgs, depth0 = [], None
+    for R, t in zip(Rs, ts):
+        d = R.T @ (np.linalg.inv(K) @ pix)
+        o = -R.T @ t
+        P = o[:, None] + d * (5.0 - o[2]) / d[2]
+        u, v = P[0], P[1]
+        tex = (np.sin(3.0 * u) * np.cos(2.0 * v)
+               + 0.5 * np.sin(7.1 * u + 1.3) * np.sin(5.3 * v + 0.7)
+               + 0.25 * np.sin(13.7 * u * v / 5.0))
+        imgs.append(tex.reshape(H, W))
+        if depth0 is None:
+            depth0 = (R @ P + t[:, None])[2].reshape(H, W)
+    return imgs, K, Rs, ts, depth0
+
+
+def _sweep_args(imgs, K, Rs, ts, device, dtype):
+    T = (lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device))
+    R_rel = np.stack([R @ Rs[0].T for R in Rs[1:]])
+    t_rel = np.stack([t - Rr @ ts[0] for Rr, t in zip(R_rel, ts[1:])])
+    return (T(imgs[0]), T(np.stack(imgs[1:])), T(K),
+            T(np.stack([K] * (len(imgs) - 1))), T(R_rel), T(t_rel))
+
+
+def test_patch_match_on_the_card_equals_the_cpu(cuda):
+    """Plane sweep, refinement (the same seeded draws) and normals in
+    float64 on the card against the CPU port: depths to rel 1e-9 except
+    where the CPU's best and second-best sweep costs tie within 1e-9 (and
+    what the refinement carries from there); in float32, the plane."""
+    from dagsfm_tpu_torch.mvs import patch_match as t_pm
+    imgs, K, Rs, ts, truth = _plane_scene()
+    opts = t_pm.PatchMatchOptions(num_depths=32, num_iterations=3)
+    out = {}
+    for dev in ("cpu", cuda):
+        a = _sweep_args(imgs, K, Rs, ts, dev, torch.float64)
+        sweep = t_pm.plane_sweep(*a, 3.0, 8.0, opts)
+        d, n, c = t_pm.estimate_depth_map(torch.Generator().manual_seed(1),
+                                          *a, 3.0, 8.0, opts)
+        out[str(dev)] = [x.cpu().numpy() for x in (*sweep, d, n, c)]
+    cpu, gpu = out["cpu"], out[str(cuda)]
+    a = _sweep_args(imgs, K, Rs, ts, "cpu", torch.float64)
+    vol = t_pm._multi_view_cost(
+        a[0], a[1], torch.linalg.inv(a[2]), *a[3:],
+        (1.0 / t_pm.depth_hypotheses(3.0, 8.0, 32))[:, None, None].expand(
+            32, *a[0].shape), opts).numpy()
+    srt = np.sort(vol, 0)
+    ties = srt[1] - srt[0] < 1e-9
+    differ = np.abs(gpu[0] - cpu[0]) > 1e-9 * cpu[0]
+    assert not (differ & ~ties).any()
+    refined = np.abs(gpu[2] - cpu[2]) > 1e-9 * cpu[2]
+    assert refined.mean() <= 0.01 + ties.mean() * 25
+    np.testing.assert_allclose(gpu[3][~refined], cpu[3][~refined], rtol=0,
+                               atol=1e-6)
+    a32 = _sweep_args(imgs, K, Rs, ts, cuda, torch.float32)
+    d32, _, _ = t_pm.estimate_depth_map(torch.Generator().manual_seed(1),
+                                        *a32, 3.0, 8.0, opts)
+    assert d32.dtype == torch.float32
+    err = np.abs(d32.cpu().numpy() - truth)[8:-8, 8:-8] / 5.0
+    assert np.median(err) < 0.02
+
+
+def test_fusion_on_the_card_equals_the_cpu(cuda):
+    """Consistency masks and the fused cloud of the true depth maps (one
+    view corrupted), float64, on the card against the CPU."""
+    from dagsfm_tpu_torch.mvs import fusion as t_fus
+    imgs, K, Rs, ts, _ = _plane_scene()
+    depths = []
+    for R, t in zip(Rs, ts):
+        H, W = imgs[0].shape
+        ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+        d = R.T @ (np.linalg.inv(K) @ np.stack(
+            [xs, ys, np.ones_like(xs)]).reshape(3, -1))
+        o = -R.T @ t
+        P = o[:, None] + d * (5.0 - o[2]) / d[2]
+        depths.append((R @ P + t[:, None])[2].reshape(H, W))
+    depths[2] = depths[2] * 1.3
+    a = t_fus.fuse(depths, [None] * 4, imgs, [K] * 4, Rs, ts,
+                   device="cpu")
+    b = t_fus.fuse(depths, [None] * 4, imgs, [K] * 4, Rs, ts, device=cuda)
+    assert len(a["xyz"]) == len(b["xyz"]) > 3000
+    np.testing.assert_allclose(b["xyz"], a["xyz"], rtol=1e-12, atol=0)
+    np.testing.assert_array_equal(b["num_consistent"], a["num_consistent"])
+
+
+def test_poisson_splat_repeats_bit_for_bit_on_the_card(cuda):
+    """The splat sums each cell in a fixed order (no atomics): two runs on
+    the card give the same grid and the same mesh, within rel 1e-12 of
+    the CPU's grid and with the CPU's triangles."""
+    from dagsfm_tpu_torch.mvs import poisson as t_po
+    rng = np.random.default_rng(4)
+    v = rng.normal(size=(20000, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    xyz = v + rng.normal(0, 0.005, v.shape)
+    G = 64
+    pts = (xyz - xyz.min(0)) / (np.ptp(xyz, 0).max() / (G - 1))
+    vals = np.concatenate([v, np.ones((len(v), 1))], 1)
+    grids = [t_po._trilinear_scatter(
+        (G, G, G, 4), torch.as_tensor(pts, device=cuda),
+        torch.as_tensor(vals, device=cuda)) for _ in range(2)]
+    assert torch.equal(grids[0], grids[1])
+    cpu = t_po._trilinear_scatter((G, G, G, 4), torch.as_tensor(pts),
+                                  torch.as_tensor(vals))
+    assert float((grids[0].cpu() - cpu).abs().max()) <= \
+        1e-12 * float(cpu.abs().max())
+    opts = t_po.PoissonOptions(grid=G)
+    m1, m2 = (t_po.poisson_mesh(xyz, v, opts, device=cuda) for _ in range(2))
+    assert np.array_equal(m1[0], m2[0]) and np.array_equal(m1[1], m2[1])
+    mc = t_po.poisson_mesh(xyz, v, opts, device="cpu")
+    assert np.array_equal(m1[1], mc[1])
+    np.testing.assert_allclose(m1[0], mc[0], rtol=0, atol=1e-9)
+
+
+def test_undistortion_on_the_card_equals_the_cpu(cuda):
+    """undistort_image (every pixel off the in-bounds limits, rel 1e-9)
+    and undistort_reconstruction's keypoints on the card against the CPU,
+    for a radial, a fisheye and an OpenCV camera."""
+    from dagsfm_tpu_torch.scene import cameras as t_cm
+    from dagsfm_tpu_torch.scene import undistortion as t_und
+    from dagsfm_tpu_torch.scene.reconstruction import (ImageRecord,
+                                                       Reconstruction)
+    rng = np.random.default_rng(5)
+    img = rng.random((96, 128)).astype(np.float32)
+    for mid, params in ((t_cm.SIMPLE_RADIAL, (110.0, 64.3, 47.9, -0.12)),
+                        (t_cm.OPENCV_FISHEYE, (110.0, 111.0, 64.2, 48.1,
+                                               0.05, -0.01, 0.002, 0.0)),
+                        (t_cm.OPENCV, (110.0, 111.0, 64.2, 48.1, -0.08,
+                                       0.01, 0.002, -0.001))):
+        cam = t_cm.Camera(1, mid, 128, 96, params)
+        a = t_und.undistort_image(img, cam, device="cpu")
+        b = t_und.undistort_image(img, cam, device=cuda)
+        both = (a != 0) & (b != 0)
+        assert (a != b).sum() - (both & (a != b)).sum() <= 2 * (96 + 128)
+        np.testing.assert_allclose(b[both], a[both], rtol=1e-9, atol=0)
+        rec = Reconstruction()
+        rec.add_camera(cam)
+        for i in range(3):
+            rec.add_image(ImageRecord(i, f"im{i}", 1, np.array([1.0, 0, 0, 0]),
+                                      np.zeros(3), rng.uniform(0, 1, (40, 2))
+                                      * [128, 96], np.full(40, -1)))
+        ra = t_und.undistort_reconstruction(rec, device="cpu")
+        rb = t_und.undistort_reconstruction(rec, device=cuda)
+        for i in rec.images:
+            np.testing.assert_allclose(rb.images[i].xys, ra.images[i].xys,
+                                       rtol=1e-9, atol=1e-9)
+
+
+def test_dense_reconstruct_defaults_to_the_card(cuda, tmp_path):
+    """dense_reconstruct with no device runs on the card (float32) and
+    finds the plane; its maps and fused.ply are written."""
+    from dagsfm_tpu_torch.mvs import controller as t_ctl
+    from dagsfm_tpu_torch.mvs import patch_match as t_pm
+    from dagsfm_tpu_torch.ops import rotations as t_rops
+    from dagsfm_tpu_torch.scene import cameras as t_cm
+    from dagsfm_tpu_torch.scene.reconstruction import (ImageRecord,
+                                                       Reconstruction)
+    imgs, K, Rs, ts, _ = _plane_scene()
+    H, W = imgs[0].shape
+    rec = Reconstruction()
+    rec.add_camera(t_cm.Camera(0, t_cm.PINHOLE, W, H,
+                               (K[0, 0], K[1, 1], K[0, 2], K[1, 2])))
+    rng = np.random.default_rng(0)
+    Pw = np.column_stack([rng.uniform(-2, 2, 30), rng.uniform(-1.5, 1.5, 30),
+                          np.full(30, 5.0)])
+    for iid, (R, t) in enumerate(zip(Rs, ts)):
+        Pc = Pw @ R.T + t
+        xy = Pc[:, :2] / Pc[:, 2:] * K[0, 0] + K[:2, 2]
+        rec.add_image(ImageRecord(iid, f"im{iid}.png", 0,
+                                  t_rops.rotmat_to_quat_np(R), t, xy,
+                                  np.full(30, -1, np.int64)))
+        rec.register_image(iid)
+    for k in range(30):
+        rec.add_point3D(Pw[k], [(i, k) for i in range(4)])
+    opts = t_ctl.DenseOptions(
+        patch_match=t_pm.PatchMatchOptions(num_depths=32, num_iterations=3))
+    fused = t_ctl.dense_reconstruct(rec, dict(enumerate(imgs)),
+                                    str(tmp_path), opts)
+    assert len(fused["xyz"]) > 2000
+    assert abs(np.median(fused["xyz"][:, 2]) - 5.0) < 0.05
+    assert (tmp_path / "fused.ply").exists()

@@ -64,7 +64,9 @@ def test_cli_runs_without_jax_or_reference():
     for argv in ([], ["local_sfm_worker"], ["local_matching_worker"],
                  ["distributed_mapper"], ["vocab_tree_builder"],
                  ["vocab_tree_retriever"], ["spatial_matcher"],
-                 ["transitive_matcher"]):
+                 ["transitive_matcher"], ["image_undistorter"],
+                 ["model_converter"], ["poisson_mesher"],
+                 ["delaunay_mesher"]):
         out = _run(head + (
             "import runpy\n"
             f"sys.argv = ['dagsfm_tpu_torch'] + {argv!r} + ['--help']\n"

@@ -21,12 +21,12 @@ any error:
      shape (B = 128, K = 3,712) and K3 at 3,712 x 3,712;
   4. the tool path: dagsfm_tpu_torch.tools.matcher_mfu (K4's four modes
      and K1 at B = 256, K = 1024);
-  5. the pixel path, cut to 30 images (435 pairs; 50 until the parallel
-     path joined, 100 until the distorted path did): rendered 1024 x 768
-     images -> SIFT (8192
-     features) -> exhaustive matching -> full E/F/H verification with
-     guided matching -> mapping -> COLMAP model, scored against ground
-     truth;
+  5. the pixel path, cut to 12 images (66 pairs), the number of
+     tests/test_e2e_pixels.py (30 until the commands and rig paths
+     joined, 50 until the parallel path did, 100 until the distorted path
+     did): rendered 1024 x 768 images -> SIFT (8192 features) ->
+     exhaustive matching -> full E/F/H verification with guided matching
+     -> mapping -> COLMAP model, scored against ground truth;
   6. the distorted path, cut to 70 images (2,415 pairs; 80 until the
      retrieval path joined, 100 until the distributed path did): images
      rendered through a SIMPLE_RADIAL
@@ -79,7 +79,18 @@ any error:
      pose edges are read back from it, and run_matcher_on_database
      matches 470 ring pairs on a second database that holds features
      only (4 K1 launches); K1 is then held against its plain version at
-     that database's K;
+     that database's K. The database is kept: `python -m
+     dagsfm_tpu_torch mapper` starts on it as a process as soon as it is
+     written and runs beside the paths that follow; before the last
+     line its models must equal the in-process MapperController's to
+     the bit and meet the same limits;
+  11b. the commands path, in this process through cli.main, on that
+     database and its first scene's model: image_deleter (two copies
+     without images 41-50 and 1-10), model_merger and sfm_aligner on
+     them (all 50 registered, the two to the bit), image_registrator
+     (41-50 back from the database), point_triangulator on the model
+     with its points stripped, bundle_adjuster, model_aligner onto the
+     true centres, model_analyzer; no kernel launches;
   12. the retrieval path: tests/test_e2e_scale.py at its 100 rendered
      images of 256 x 192 (SIFT 512, sequential pairs with BoW loop
      closure, essential-only verification, DistributedMapperController
@@ -103,7 +114,17 @@ any error:
      counted), one in a `local_matching_worker` process, merged and
      mapped; solve_sharded on the BA path's 1M observations, D = 8
      against D = 1 and two spawned ranks on the card (to rel 1e-9), and
-     estimate_rotations_sharded on the distributed path's edges.
+     estimate_rotations_sharded on the distributed path's edges;
+  15. the rig path: a four-camera rig at 50 snapshots (200 images of 640
+     x 480, 1,500 points each in 8-16 snapshots, 0.5 px noise, rig
+     poses, mounts and points perturbed) written with its rig config;
+     `rig_bundle_adjuster` in this process at its defaults (50 LM
+     iterations, mounts refined; the dense float64 J of 3.7 GiB) against
+     an in-process solve (to the bit), gated on the cost, the RMS
+     reprojection error and the mounts; gpnp under RANSAC (1,024
+     hypotheses of 8) on snapshot 0's rays with a quarter of them
+     outliers, and the 17-point solver on 17 exact ray pairs and on a
+     batch of 1,024 (the batched SVD timed); no kernel launches.
 Every kernel launch counter is zeroed just before each path and read
 just after it. It prints a `kernels` JSON line (K1's launches are the
 distorted path's), the card line and, last, the result.
@@ -134,9 +155,10 @@ DESC_NOISE = 0.02        # per-dimension descriptor noise of an observation
 MATCH_BATCH = 128        # pairs per matcher launch on the main path
 PIXEL_SLOTS = 3712       # keypoint slots per image on the pixel path
 K1_TRUE = -0.12          # the distorted path's true radial distortion
-PIXEL_IMAGES = 30        # the pixel path, cut to make room for the
-                         # distorted and parallel paths within the run's
-                         # time limit
+PIXEL_IMAGES = 12        # the pixel path, cut to its test's own 12 images
+                         # to make room for the distorted, parallel,
+                         # commands and rig paths within the run's time
+                         # limit
 DISTORTED_IMAGES = 70    # the distorted path: 100 until the distributed
                          # path joined, 80 until the retrieval path did
 PLANTED_IMAGES = 40      # the planted path, cut to make room for the
@@ -150,6 +172,7 @@ DB_IMAGES = 50           # the database path: images per scene (two scenes,
 DB_POINTS = 2000         # one cluster of 100 images together)
 DB_OFFSET = 1000         # the second scene's image ids start past this
 DB_RING = 5              # database matching: each image and its next 5
+CMD_DROP = 10            # the commands path: images image_deleter drops
 PAR_IMAGES = 24          # the parallel path's matching jobs: a rendered
 PAR_W, PAR_H = 640, 480  # ring of 24 images, each with its next 3, at
 PAR_FOCAL = 680.0        # tests/test_distributed_matching.py's field of
@@ -182,6 +205,18 @@ DENSE_PEAK_GIB = 40.0
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+RIG_SNAPSHOTS = 50       # the rig path: a four-camera rig (ETH3D's rig
+RIG_POINTS = 1500        # datasets use four cameras) on a ring of 50
+RIG_TRACK = (8, 16)      # snapshots; each point seen by 8-16 of them
+RIG_NOISE = 0.5          # pixels
+RIG_W, RIG_H, RIG_FOCAL = 640, 480, 500.0
+RIG_YAW_DEG = (-36.0, -12.0, 12.0, 36.0)   # each camera's yaw in the rig
+RIG_CENTRES = ((-0.3, 0.0, 0.0), (-0.1, -0.1, 0.05), (0.1, 0.1, 0.05),
+               (0.3, 0.0, 0.0))   # each camera's centre in the rig frame:
+RIG_BASELINE = 0.6       # not on one line (an axial rig leaves the
+#                          17-point system a second null vector)
+RIG_OUTLIERS = 0.25      # gpnp's share of outlier rays
+RIG_HYPS, RIG_SAMPLE = 1024, 8
 
 
 def _unit(v: np.ndarray) -> np.ndarray:
@@ -275,6 +310,135 @@ def turn_edges(edges: dict, n: int, min_inliers: int, degrees: float = 30.0,
         R, t, ninl, config = edges[k]
         out[k] = (Rx @ R, t, ninl, config)
     return out, set(turned)
+
+
+def _yaw(deg: float) -> np.ndarray:
+    a = math.radians(deg)
+    return np.array([[math.cos(a), 0.0, math.sin(a)], [0.0, 1.0, 0.0],
+                     [-math.sin(a), 0.0, math.cos(a)]])
+
+
+def _small_rotation(rng, sigma: float) -> np.ndarray:
+    w = rng.normal(0.0, sigma, 3)
+    th = np.linalg.norm(w)
+    k = w / th
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + math.sin(th) * Kx + (1 - math.cos(th)) * Kx @ Kx
+
+
+def rig_scene(num_snapshots: int = RIG_SNAPSHOTS,
+              num_points: int = RIG_POINTS, noise: float = RIG_NOISE,
+              seed: int = 0):
+    """A rig of four pinhole cameras (RIG_W x RIG_H, focal RIG_FOCAL,
+    yawed by RIG_YAW_DEG, centred at RIG_CENTRES in the rig frame) at
+    `num_snapshots` poses on a ring of radius 10 around a cloud of points
+    in [-3, 3]^3, each point kept in a random 8-16 of the snapshots that
+    see it, observed by every camera there that sees it, plus N(0, noise)
+    pixels.
+
+    Returns (rec, truth). rec is a port Reconstruction with cameras 1-4,
+    image s * 4 + k + 1 named `cam{k}/{s:04d}.png`, and the poses and
+    points perturbed: rig poses past snapshot 0 by N(0, 0.01 rad) and
+    N(0, 0.05), mounts past camera 0 by N(0, 0.01 rad) and N(0, 0.01),
+    points by N(0, 0.05), so snapshot 0 and mount 0 (the gauge) are
+    true. truth: rig_R (S, 3, 3), rig_t (S, 3), mount_R (4, 3, 3),
+    mount_t (4, 3), points (P, 3), clean pixels (S, 4, P, 2), seen (S, 4,
+    P) bool."""
+    from dagsfm_tpu_torch.scene import cameras
+    from dagsfm_tpu_torch.scene.reconstruction import (ImageRecord,
+                                                       Reconstruction)
+    from dagsfm_tpu_torch.scene.synthetic import _look_at
+    from dagsfm_tpu_torch.ops import rotations as rops
+    rng = np.random.default_rng(seed)
+    S, P, C = num_snapshots, num_points, len(RIG_YAW_DEG)
+    pts = rng.uniform(-3.0, 3.0, (P, 3))
+    poses = [_look_at(np.array([10 * math.cos(2 * math.pi * s / S),
+                                10 * math.sin(2 * math.pi * s / S),
+                                rng.uniform(-1, 1)]),
+                      rng.uniform(-0.5, 0.5, 3)) for s in range(S)]
+    rig_R = np.stack([R for R, _ in poses])
+    rig_t = np.stack([t for _, t in poses])
+    mount_R = np.stack([_yaw(d) for d in RIG_YAW_DEG])
+    mount_t = -np.einsum("cij,cj->ci", mount_R, np.array(RIG_CENTRES))
+    Xr = np.einsum("sij,pj->spi", rig_R, pts) + rig_t[:, None]
+    Xc = np.einsum("cij,spj->scpi", mount_R, Xr) + mount_t[None, :, None]
+    z = Xc[..., 2]
+    pix = Xc[..., :2] / np.where(np.abs(z) < 1e-9, 1e-9, z)[..., None] \
+        * RIG_FOCAL + np.array([RIG_W / 2, RIG_H / 2])
+    vis = (z > 0.2) & (pix[..., 0] >= 0) & (pix[..., 0] < RIG_W) \
+        & (pix[..., 1] >= 0) & (pix[..., 1] < RIG_H)
+    snap_seen = vis.any(1)                                  # (S, P)
+    score = rng.random((S, P))
+    score[~snap_seen] = np.inf
+    rank = np.argsort(np.argsort(score, axis=0), axis=0)
+    keep = snap_seen & (rank < rng.integers(RIG_TRACK[0], RIG_TRACK[1] + 1,
+                                            P)[None, :])
+    if keep.sum(0).min() < RIG_TRACK[0]:
+        raise AssertionError("rig scene: a point seen by too few snapshots")
+    seen = vis & keep[:, None, :]
+    noisy = pix + rng.normal(0.0, noise, pix.shape)
+
+    def perturb(R, t, sig_r, sig_t):
+        return _small_rotation(rng, sig_r) @ R, t + rng.normal(0, sig_t, 3)
+    rR, rt = rig_R.copy(), rig_t.copy()
+    for s in range(1, S):
+        rR[s], rt[s] = perturb(rig_R[s], rig_t[s], 0.01, 0.05)
+    mR, mt = mount_R.copy(), mount_t.copy()
+    for c in range(1, C):
+        mR[c], mt[c] = perturb(mount_R[c], mount_t[c], 0.01, 0.01)
+    pts_n = pts + rng.normal(0.0, 0.05, pts.shape)
+
+    rec = Reconstruction()
+    for c in range(C):
+        rec.add_camera(cameras.Camera(
+            c + 1, cameras.PINHOLE, RIG_W, RIG_H,
+            (RIG_FOCAL, RIG_FOCAL, RIG_W / 2, RIG_H / 2)))
+    kp_of = np.full((S, C, P), -1, np.int64)
+    for s in range(S):
+        for c in range(C):
+            idx = np.nonzero(seen[s, c])[0]
+            kp_of[s, c, idx] = np.arange(len(idx))
+            R = mR[c] @ rR[s]
+            rec.add_image(ImageRecord(
+                image_id=s * C + c + 1, name=f"cam{c}/{s:04d}.png",
+                camera_id=c + 1, qvec=rops.rotmat_to_quat_np(R),
+                tvec=mR[c] @ rt[s] + mt[c], xys=noisy[s, c, idx],
+                point3D_ids=np.full(len(idx), -1, np.int64),
+                registered=True))
+    for p in range(P):
+        ss, cc = np.nonzero(seen[:, :, p])
+        rec.add_point3D(pts_n[p], [(int(s * C + c + 1), int(kp_of[s, c, p]))
+                                   for s, c in zip(ss, cc)])
+    return rec, dict(rig_R=rig_R, rig_t=rig_t, mount_R=mount_R,
+                     mount_t=mount_t, points=pts, pixels=pix, seen=seen)
+
+
+def rig_config(num_cameras: int = len(RIG_YAW_DEG)) -> list:
+    """rig_scene's rig in COLMAP's JSON rig config (camera 1 the
+    reference)."""
+    return [{"ref_camera_id": 1,
+             "cameras": [{"camera_id": c + 1, "image_prefix": f"cam{c}/"}
+                         for c in range(num_cameras)]}]
+
+
+def rig_rays(truth: dict, s: int, p_idx=None):
+    """Snapshot s's rays in its true rig frame, one per (camera, point)
+    seen there (of the points p_idx, all where None), from the clean
+    pixels: (points (n, 3), origins (n, 3), unit directions (n, 3),
+    point index (n,), camera index (n,))."""
+    seen = truth["seen"][s].copy()
+    if p_idx is not None:
+        keep = np.zeros(seen.shape[1], bool)
+        keep[p_idx] = True
+        seen &= keep[None, :]
+    cc, pp = np.nonzero(seen)
+    uv = (truth["pixels"][s, cc, pp] - np.array([RIG_W / 2, RIG_H / 2])) \
+        / RIG_FOCAL
+    Rm, tm = truth["mount_R"][cc], truth["mount_t"][cc]
+    d = np.einsum("nji,nj->ni", Rm, np.concatenate(
+        [uv, np.ones((len(uv), 1))], 1))
+    o = -np.einsum("nji,nj->ni", Rm, tm)
+    return truth["points"][pp], o, _unit(d), pp, cc
 
 
 def planted_pairs(B: int, K: int, seed: int, device):
@@ -880,8 +1044,9 @@ def distributed_path(dev, card: str) -> dict:
 
 
 def _same_models(a, b) -> bool:
-    """Two ReconstructionManagers hold the same cameras, registered poses
-    and keypoints, points and tracks, to the bit."""
+    """Two ReconstructionManagers (or lists of models) hold the same
+    cameras, registered poses and keypoints, points and tracks, to the
+    bit."""
     if len(a) != len(b):
         return False
     for x, y in zip(a, b):
@@ -904,17 +1069,20 @@ def _same_models(a, b) -> bool:
     return True
 
 
-def database_path(dev, card: str) -> dict:
+def database_path(dev, card: str, work: str) -> tuple:
     """COLMAP's own workflow on one database at one cluster's size: two
     disconnected planted scenes of DB_IMAGES images (the second's image
-    ids offset by DB_OFFSET) -> FeaturePipeline writes the database ->
-    a fresh FeaturePipeline.run resumes from it -> MapperController
-    (one model per scene, snapshots) -> the models as .bin, .txt and
-    .ply, read back -> the pose edges read back from the database ->
-    run_matcher_on_database on ring pairs of a second database that
-    holds features only. Held to the planted path's limits per model.
-    Returns the launch counts; then holds K1 against its plain version
-    at the database's K."""
+    ids offset by DB_OFFSET) -> FeaturePipeline writes the database
+    (work/database.db, kept for the commands path; `python -m
+    dagsfm_tpu_torch mapper` starts on it as a process right then and
+    runs beside the paths that follow) -> a fresh FeaturePipeline.run
+    resumes from it -> MapperController (one model per scene,
+    snapshots) -> the models as .bin, .txt and .ply, read back -> the
+    pose edges read back from the database -> run_matcher_on_database
+    on ring pairs of a second database that holds features only. Held
+    to the planted path's limits per model. Returns (the launch counts,
+    the state the commands path and `finish_mapper` take); then holds
+    K1 against its plain version at the database's K."""
     import os
 
     from dagsfm_tpu_torch.features import matching as fm
@@ -924,7 +1092,6 @@ def database_path(dev, card: str) -> dict:
         load_two_view_geometries_from_database, run_matcher_on_database)
     from dagsfm_tpu_torch.scene import io as scene_io
     from dagsfm_tpu_torch.scene import synthetic
-    from dagsfm_tpu_torch.scene.reconstruction import Reconstruction
     from dagsfm_tpu_torch.scene.reconstruction_manager import \
         ReconstructionManager
     from dagsfm_tpu_torch.sfm.incremental_mapper import MapperOptions
@@ -958,9 +1125,9 @@ def database_path(dev, card: str) -> dict:
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
     secs = {}
+    db = os.path.join(work, "database.db")
     with tempfile.TemporaryDirectory() as tmp:
-        db, db2 = os.path.join(tmp, "database.db"), \
-            os.path.join(tmp, "features.db")
+        db2 = os.path.join(tmp, "features.db")
         snap = os.path.join(tmp, "snapshots")
         fp = FeaturePipeline({i: None for i in ids},
                              {i: scenes[0].camera for i in ids}, opts,
@@ -978,6 +1145,10 @@ def database_path(dev, card: str) -> dict:
         fp.match_and_verify()
         fp.write_database()
         secs["write"] = time.perf_counter() - t0
+        mapper = _start_cli(["mapper", "--database_path", db,
+                             "--output_path", os.path.join(work, "mapper")],
+                            os.path.join(work, "mapper.log"))
+        mapper.started = time.perf_counter()
         k1 = {"write": _counts()["fused_matcher"]}
         # 2. resume: nothing is computed
         t0 = time.perf_counter()
@@ -1068,10 +1239,7 @@ def database_path(dev, card: str) -> dict:
           f"in memory: {same_matches})", flush=True)
     errs = []
     for k, rec in enumerate(mgr):
-        off = DB_OFFSET if min(rec.reg_image_ids) > DB_OFFSET else 0
-        view = Reconstruction()
-        view.images = {i - off: im for i, im in rec.images.items()}
-        err = synthetic.pose_errors(view, scenes[off])
+        off, err = _db_model_errors(rec, scenes)
         errs.append(err)
         print(f"  model {k} (scene from id {off + 1}): registered "
               f"{err['num_reg']}/{DB_IMAGES}, points {rec.num_points3D()}, "
@@ -1110,7 +1278,47 @@ def database_path(dev, card: str) -> dict:
             and db2_pairs <= set(fp.two_view)):
         raise AssertionError(f"database path: database matching verified "
                              f"{n_db} of {len(ring)}")
-    return counts
+    return counts, {"work": work, "db": db, "mgr": mgr, "scenes": scenes,
+                    "mapper": mapper}
+
+
+def finish_mapper(card: str, state: dict) -> None:
+    """Wait for the database path's `mapper` process: its models must
+    equal the in-process MapperController's to the bit (both seed 0;
+    snapshots change no model) and meet the database path's limits."""
+    import os
+
+    from dagsfm_tpu_torch.scene.reconstruction_manager import \
+        ReconstructionManager
+    p = state["mapper"]
+    out = _finish_cli(p, 900, "mapper")
+    wall = time.perf_counter() - p.started
+    mgr = ReconstructionManager.read(os.path.join(state["work"], "mapper"))
+    same = _same_models(mgr, state["mgr"])
+    errs = [_db_model_errors(rec, state["scenes"])[1] for rec in mgr]
+    print(f"== mapper process (started after the database path's write): "
+          f"{wall:.3f} s wall on {card}; {len(mgr)} models, "
+          f"{[e['num_reg'] for e in errs]} registered, ATE "
+          f"{[round(e['ate'], 6) for e in errs]}, the in-process models "
+          f"to the bit: {same}; its last line: "
+          f"{out.strip().splitlines()[-1]}", flush=True)
+    if not same:
+        raise AssertionError("mapper process: models differ from the "
+                             "in-process MapperController's")
+    if len(mgr) != 2 or any(e["num_reg"] != DB_IMAGES or e["ate"] >= 0.05
+                            or e["rot_err_deg_mean"] >= 0.2 for e in errs):
+        raise AssertionError(f"mapper process: models out of limits {errs}")
+
+
+def _db_model_errors(rec, scenes: dict) -> tuple:
+    """(the scene offset, synthetic.pose_errors) of a database-path model
+    against the scene its image ids come from."""
+    from dagsfm_tpu_torch.scene import synthetic
+    from dagsfm_tpu_torch.scene.reconstruction import Reconstruction
+    off = DB_OFFSET if min(rec.reg_image_ids) > DB_OFFSET else 0
+    view = Reconstruction()
+    view.images = {i - off: im for i, im in rec.images.items()}
+    return off, synthetic.pose_errors(view, scenes[off])
 
 
 def _angle_deg(R1, R2) -> float:
@@ -1605,6 +1813,9 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+_STARTED: list = []      # every CLI process, stopped when main() ends
+
+
 def _start_cli(args: list, log: str):
     """`python -m dagsfm_tpu_torch <args>` from the checkout's root, its
     output to the file `log`."""
@@ -1616,6 +1827,7 @@ def _start_cli(args: list, log: str):
                          stdout=f, stderr=subprocess.STDOUT,
                          env=dict(os.environ, PYTHONUNBUFFERED="1"))
     p.log_file = f
+    _STARTED.append(p)
     return p
 
 
@@ -2422,6 +2634,383 @@ def retrieval_path(dev, card: str, modes: tuple) -> dict:
     return {k: counts_a[k] + counts[k] + mode_counts[k] for k in counts}
 
 
+def _reproj_px(rec) -> np.ndarray:
+    """The reprojection error in pixels of every observation of every
+    point (a model's own cameras, any model)."""
+    from dagsfm_tpu_torch.ops import projection
+    from dagsfm_tpu_torch.scene import cameras
+    q, t, X, xy, mid, par = [], [], [], [], [], []
+    for pt in rec.points3D.values():
+        for i, k in pt.track:
+            im = rec.images[i]
+            cam = rec.cameras[im.camera_id]
+            q.append(im.qvec)
+            t.append(im.tvec)
+            X.append(pt.xyz)
+            xy.append(im.xys[k])
+            mid.append(cam.model_id)
+            par.append(cam.padded_params())
+    T = (lambda a: torch.as_tensor(np.asarray(a)))
+    proj, _ = projection.project_full(T(mid), T(par), T(q), T(t), T(X))
+    return torch.linalg.norm(proj - T(xy), dim=-1).numpy()
+
+
+def commands_path(dev, card: str, state: dict) -> dict:
+    """The model commands in this process (`_cli`, as `python -m
+    dagsfm_tpu_torch` runs them) on the database path's database and its
+    scene-1 model: image_deleter makes copy A without its last
+    CMD_DROP images (41-50) and copy B without its first CMD_DROP (1-10);
+    model_merger merges A and B, sfm_aligner a directory of A and B (the
+    two to the bit, all registered, the planted limits);
+    image_registrator puts A's dropped images back from the database;
+    point_triangulator re-triangulates the model with its points
+    stripped (>= 90 % of its points, median error < 1 px);
+    bundle_adjuster (its cost must not rise); model_aligner onto the true
+    centres (within the planted ATE without a further Sim(3));
+    model_analyzer (its JSON the model's own counts). Returns the launch
+    counts (none expected)."""
+    import os
+
+    from dagsfm_tpu_torch.ops import rotations as rops
+    from dagsfm_tpu_torch.scene import io as scene_io
+    from dagsfm_tpu_torch.scene import synthetic
+
+    work, sc = state["work"], state["scenes"][0]
+    model = next(r for r in state["mgr"]
+                 if _db_model_errors(r, state["scenes"])[0] == 0)
+    print(f"== commands path: the model commands in this process on the "
+          f"database path's database and its scene-1 model "
+          f"({model.num_reg_images()} images, {model.num_points3D()} "
+          f"points)", flush=True)
+    d = (lambda *a: os.path.join(work, "cmd", *a))
+    os.makedirs(d("pair"), exist_ok=True)
+    scene_io.write_model_bin(model, d("model"))
+    tail = range(DB_IMAGES - CMD_DROP + 1, DB_IMAGES + 1)
+    head = range(1, CMD_DROP + 1)
+    with open(d("drop_a.txt"), "w") as f:
+        f.write("".join(f"{i}\n" for i in tail))
+    with open(d("drop_b.txt"), "w") as f:
+        f.write("".join(f"image{i:05d}.jpg\n" for i in head))
+    stripped = scene_io.read_model_bin(d("model"))
+    for pid in list(stripped.points3D):
+        stripped.delete_point3D(pid)
+    scene_io.write_model_bin(stripped, d("stripped"))
+    centres = sc.centers()
+    with open(d("centres.txt"), "w") as f:
+        f.write("".join(f"image{i:05d}.jpg {float(c[0])!r} {float(c[1])!r} "
+                        f"{float(c[2])!r}\n"
+                        for i, c in enumerate(centres, 1)))
+    torch.cuda.synchronize()
+    _zero_counts()                                    # counts zeroed
+    secs, outs = {}, {}
+
+    def run(name, *argv):
+        t0 = time.perf_counter()
+        outs[name] = _cli([name, *argv])
+        secs[name] = time.perf_counter() - t0
+    run("image_deleter", "--input_path", d("model"), "--output_path",
+        d("pair", "A"), "--image_ids_path", d("drop_a.txt"))
+    run("image_deleter", "--input_path", d("model"), "--output_path",
+        d("pair", "B"), "--image_names_path", d("drop_b.txt"))
+    run("model_merger", "--input_path1", d("pair", "A"), "--input_path2",
+        d("pair", "B"), "--output_path", d("merged"))
+    run("sfm_aligner", "--input_path", d("pair"), "--output_path",
+        d("aligned"))
+    run("image_registrator", "--database_path", state["db"],
+        "--input_path", d("pair", "A"), "--output_path", d("registered"))
+    run("point_triangulator", "--database_path", state["db"],
+        "--input_path", d("stripped"), "--output_path", d("triangulated"))
+    run("bundle_adjuster", "--input_path", d("model"), "--output_path",
+        d("adjusted"))
+    run("model_aligner", "--input_path", d("model"), "--ref_images_path",
+        d("centres.txt"), "--output_path", d("true_frame"))
+    run("model_analyzer", "--input_path", d("model"))
+    torch.cuda.synchronize()
+    counts = _counts()                                # counts read
+
+    read = (lambda *a: scene_io.read_model_bin(d(*a)))
+    a, b = read("pair", "A"), read("pair", "B")
+    merged, aligned = read("merged"), read("aligned")
+    registered, tri = read("registered"), read("triangulated")
+    err = {k: synthetic.pose_errors(r, sc) for k, r in (
+        ("merged", merged), ("aligned", aligned),
+        ("registered", registered))}
+    back = [registered.images[i] for i in tail]
+    R_true = [sc.R[i - 1] for i in tail]
+    sim = synthetic.align_to_truth(registered, sc)
+    rereg_deg = max(_angle_deg(rops.quat_to_rotmat_np(im.qvec) @ sim[1].T,
+                               R) for im, R in zip(back, R_true))
+    tri_px, model_px = _reproj_px(tri), _reproj_px(model)
+    tri_med = float(np.median(tri_px))
+    costs = [float(x) for x in outs["bundle_adjuster"].split("BA cost")[1]
+             .split("->")]
+    true_frame = synthetic.pose_errors(read("true_frame"), sc, align=False)
+    stats = json.loads(outs["model_analyzer"].strip().splitlines()[-1])
+    tracks = [len(p.track) for p in model.points3D.values()]
+    own = {"num_cameras": len(model.cameras), "num_images": len(model.images),
+           "num_reg_images": model.num_reg_images(),
+           "num_points3D": model.num_points3D(),
+           "num_observations": int(sum(tracks)),
+           "mean_track_length": round(float(np.mean(tracks)), 3),
+           "mean_observations_per_image": round(
+               sum(tracks) / model.num_reg_images(), 3),
+           "mean_reprojection_error_px": round(
+               model.compute_mean_reprojection_error(), 4)}
+    print(f"  on {card}: " + ", ".join(f"{k} {v:.3f} s"
+                                       for k, v in secs.items())
+          + f"; commands path {sum(secs.values()):.3f} s; K1-K4 launches "
+          f"{counts}", flush=True)
+    print(f"  copies A, B: {a.num_reg_images()}, {b.num_reg_images()} "
+          f"registered; model_merger and sfm_aligner: "
+          f"{merged.num_reg_images()}, {aligned.num_reg_images()} "
+          f"registered, ATE {err['merged']['ate']:.6f}, "
+          f"{err['aligned']['ate']:.6f}, the same to the bit: "
+          f"{_same_models([merged], [aligned])}", flush=True)
+    print(f"  image_registrator: {registered.num_reg_images()} registered, "
+          f"ATE {err['registered']['ate']:.6f}, rotation error mean "
+          f"{err['registered']['rot_err_deg_mean']:.6f} deg, largest of "
+          f"the re-registered {rereg_deg:.6f} deg; point_triangulator: "
+          f"{tri.num_points3D()} points (the mapped model's "
+          f"{model.num_points3D()}), reprojection error median "
+          f"{tri_med:.4f} px, mean {tri_px.mean():.4f} px (the mapped "
+          f"model's {np.median(model_px):.4f}, {model_px.mean():.4f}); "
+          f"bundle_adjuster cost "
+          f"{costs[0]:.2f} -> {costs[1]:.2f}; model_aligner ATE "
+          f"{true_frame['ate']:.6f} with no further alignment; "
+          f"model_analyzer {stats}", flush=True)
+
+    if any(counts.values()):
+        raise AssertionError(f"commands path: kernel launches {counts}")
+    if (a.num_reg_images(), b.num_reg_images()) != \
+            (DB_IMAGES - CMD_DROP,) * 2 or set(a.reg_image_ids) & set(tail) \
+            or set(b.reg_image_ids) & set(head):
+        raise AssertionError("commands path: image_deleter")
+    for k in ("merged", "aligned", "registered"):
+        e = err[k]
+        if e["num_reg"] != DB_IMAGES or e["ate"] >= 0.05 \
+                or e["rot_err_deg_mean"] >= 0.2:
+            raise AssertionError(f"commands path: {k} out of limits {e}")
+    if not _same_models([merged], [aligned]):
+        raise AssertionError("commands path: model_merger and sfm_aligner "
+                             "differ")
+    if rereg_deg >= 0.2:
+        raise AssertionError("commands path: re-registered poses off by "
+                             f"{rereg_deg} deg")
+    # the median: the command keeps its two-view points unrefined (no BA
+    # and no filter, as the reference's), so a tail of them carries the
+    # mean past 1 px in both packages (PERF.md section 2)
+    if tri.num_points3D() < 0.9 * model.num_points3D() or tri_med >= 1.0:
+        raise AssertionError("commands path: point_triangulator gave "
+                             f"{tri.num_points3D()} points at a median "
+                             f"{tri_med} px")
+    if costs[1] > costs[0]:
+        raise AssertionError(f"commands path: BA cost rose {costs}")
+    if true_frame["ate"] >= 0.05:
+        raise AssertionError(f"commands path: model_aligner {true_frame}")
+    if stats != own:
+        raise AssertionError(f"commands path: model_analyzer {stats} != "
+                             f"{own}")
+    return counts
+
+
+def _rig_mount_errors(out, truth: dict, rig_frame_centres) -> tuple:
+    """(rotation errors in degrees, translation errors) of a RigBAResult's
+    mounts against the true mounts relative to camera 0 (the solver's
+    rig frame), translations at the scale that aligns the solved rig
+    centres (camera 0's) to the true ones."""
+    from dagsfm_tpu_torch.ops import rotations as rops
+    from dagsfm_tpu_torch.ops.umeyama import umeyama_np
+    rq, rt = out.rig_q.cpu().numpy(), out.rig_t.cpu().numpy()
+    Rr = rops.quat_to_rotmat_np(rq)
+    centres = -np.einsum("sji,sj->si", Rr, rt)
+    s, _, _ = umeyama_np(centres, rig_frame_centres)
+    R0, t0 = truth["mount_R"][0], truth["mount_t"][0]
+    mq, mt = out.mount_q.cpu().numpy(), out.mount_t.cpu().numpy()
+    rot, trans = [], []
+    for c in range(len(mq)):
+        R_rel = truth["mount_R"][c] @ R0.T
+        rot.append(_angle_deg(rops.quat_to_rotmat_np(mq[c]), R_rel))
+        trans.append(float(np.linalg.norm(
+            s * mt[c] - (truth["mount_t"][c] - R_rel @ t0))))
+    return rot, trans
+
+
+def rig_path(dev, card: str) -> dict:
+    """The rig group on the card: rig_scene's 200 images written with
+    their rig config, `rig_bundle_adjuster` (through `_cli`, at its
+    defaults: 50 iterations, the relative poses refined) against an
+    in-process `solve` on the same input (to the bit), gated on the
+    cost, the RMS reprojection error and the mounts against the truth;
+    then gpnp under RANSAC on snapshot 0's rays with RIG_OUTLIERS of them
+    turned random, and the 17-point solver on 17 exact ray pairs between
+    snapshots 0 and 1, and over a batch of RIG_HYPS such systems (the
+    batched SVD, timed; how many of them give R within 1e-5 is
+    printed). Returns the launch counts (none expected)."""
+    import os
+
+    from dagsfm_tpu_torch.ops import generalized_pose as gp
+    from dagsfm_tpu_torch.ops import ransac as rnsc
+    from dagsfm_tpu_torch.scene import camera_rig as crig
+    from dagsfm_tpu_torch.scene import io as scene_io
+    from dagsfm_tpu_torch.sfm import rig_bundle_adjustment as rba
+
+    C = len(RIG_YAW_DEG)
+    print(f"== rig path: {C} cameras x {RIG_SNAPSHOTS} snapshots "
+          f"({C * RIG_SNAPSHOTS} images of {RIG_W} x {RIG_H}), "
+          f"{RIG_POINTS} points each in {RIG_TRACK[0]}-{RIG_TRACK[1]} "
+          f"snapshots, pixel noise {RIG_NOISE}", flush=True)
+    t0 = time.perf_counter()
+    rec, truth = rig_scene(RIG_SNAPSHOTS, RIG_POINTS)
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        model, out_dir = os.path.join(tmp, "model"), os.path.join(tmp, "out")
+        cfg = os.path.join(tmp, "rig.json")
+        scene_io.write_model_bin(rec, model)
+        with open(cfg, "w") as f:
+            json.dump(rig_config(), f)
+        print(f"  set-up: scene, model and rig config "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()                                # counts zeroed
+        t0 = time.perf_counter()
+        printed = _cli(["rig_bundle_adjuster", "--input_path", model,
+                        "--output_path", out_dir, "--rig_config_path", cfg])
+        secs["rig_bundle_adjuster"] = time.perf_counter() - t0
+        cli_rec = scene_io.read_model_bin(out_dir)
+        # the same solve in this process
+        t0 = time.perf_counter()
+        mine = scene_io.read_model_bin(model)
+        rigs = crig.read_rig_config(cfg, mine)
+        prob, meta = crig.make_rig_ba_problem(mine, rigs, device=dev)
+        torch.cuda.synchronize()
+        secs["set-up"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = rba.solve(prob, rba.RigBAOptions(max_iterations=50))
+        torch.cuda.synchronize()
+        secs["solve"] = time.perf_counter() - t0
+        crig.apply_rig_ba_result(mine, rigs, out, meta)
+    N = prob.obs_xy.shape[0]
+    n_par = 6 * prob.rig_q.shape[0] + 6 * C + 3 * prob.points.shape[0]
+    j_bytes = 2 * N * n_par * 8
+    c0, c1 = float(out.initial_cost), float(out.final_cost)
+    rms = math.sqrt(2 * c1 / N)
+    R0, t0m = truth["mount_R"][0], truth["mount_t"][0]
+    cam0_R = np.einsum("ij,sjk->sik", R0, truth["rig_R"])
+    cam0_t = truth["rig_t"] @ R0.T + t0m
+    rot_err, t_err = _rig_mount_errors(
+        out, truth, -np.einsum("sji,sj->si", cam0_R, cam0_t))
+    same = _same_models([cli_rec], [mine])
+
+    # gpnp under RANSAC on snapshot 0's rays, a share of them turned
+    rng = np.random.default_rng(5)
+    X, o, dirs, _, _ = rig_rays(truth, 0)
+    n = len(X)
+    bad = rng.choice(n, int(RIG_OUTLIERS * n), replace=False)
+    dirs = dirs.copy()
+    dirs[bad] = _unit(rng.normal(size=(len(bad), 3)))
+    T = (lambda a: torch.as_tensor(np.asarray(a), device=dev)[None])
+    mask = torch.ones((1, n), dtype=torch.bool, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    idx = rnsc.sample_indices(gen, mask, RIG_HYPS, RIG_SAMPLE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rnsc.ransac(gp.gpnp, lambda M, a, b, c: gp.gpnp_ray_residual(
+        M, a[:, None], b[:, None], c[:, None]), (T(X), T(o), T(dirs)), mask,
+        idx, 1e-6)
+    torch.cuda.synchronize()
+    secs["gpnp RANSAC"] = time.perf_counter() - t0
+    M = res.model[0].cpu().numpy()
+    gpnp_err = max(np.abs(M[:, :3] - truth["rig_R"][0]).max(),
+                   np.abs(M[:, 3] - truth["rig_t"][0]).max())
+    # the 17-point solver: one ray per point seen in snapshots 0 and 1,
+    # the cameras taken in turn so that no one camera pair holds them all
+    q1, c1_, q2, c2 = _rig_ray_pairs(truth, 0, 1)
+    R_true = truth["rig_R"][1] @ truth["rig_R"][0].T
+    t0 = time.perf_counter()
+    M17, v17 = gp.generalized_relative_pose_17pt(
+        *(T(a[:17]) for a in (q1, c1_, q2, c2)))
+    torch.cuda.synchronize()
+    secs["17-point"] = time.perf_counter() - t0
+    r17_err = float(np.abs(M17[0, 0, :, :3].cpu().numpy() - R_true).max())
+    # a batch of windows of 17 consecutive pairs (cyclic), timed
+    pick = torch.as_tensor((np.arange(RIG_HYPS)[:, None] + np.arange(17))
+                           % len(q1), device=dev)
+    batch = [torch.as_tensor(a, device=dev)[pick] for a in (q1, c1_, q2, c2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Mb, vb = gp.generalized_relative_pose_17pt(*batch)
+    torch.cuda.synchronize()
+    secs[f"17-point x {RIG_HYPS}"] = time.perf_counter() - t0
+    rb_ok = int(((Mb[..., 0, :, :3] - torch.as_tensor(R_true, device=dev))
+                 .abs().amax(dim=(-1, -2)) < 1e-5).sum())
+    counts = _counts()                                # counts read
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    print(f"  on {card}: " + ", ".join(f"{k} {v:.3f} s"
+                                       for k, v in secs.items())
+          + f"; {printed.strip().splitlines()[-1]}; {N} observations, "
+          f"{n_par} parameters, J {j_bytes / 2 ** 30:.3f} GiB "
+          f"({j_bytes} bytes), {50 / secs['solve']:.3f} LM iterations/s; "
+          f"peak device memory {peak:.2f} GiB; K1-K4 launches {counts}",
+          flush=True)
+    print(f"  cost {c0:.6g} -> {c1:.6g} ({c1 / c0:.3g}), RMS reprojection "
+          f"error {rms:.4f} px; mounts: rotation error "
+          f"{[round(e, 5) for e in rot_err]} deg, translation error "
+          f"{[round(e, 5) for e in t_err]} (baseline {RIG_BASELINE}); the "
+          f"command's model and the in-process solve to the bit: {same}",
+          flush=True)
+    print(f"  gpnp: {n} rays, {len(bad)} outliers, {RIG_HYPS} hypotheses "
+          f"of {RIG_SAMPLE}: {int(res.num_inliers[0])} inliers, pose error "
+          f"{gpnp_err:.3g}; 17-point: R error {r17_err:.3g} (valid "
+          f"{bool(v17[0, 0])}), over the batch of {RIG_HYPS} windows: "
+          f"{rb_ok} with R within 1e-5, {int(vb.sum())} valid",
+          flush=True)
+
+    if any(counts.values()):
+        raise AssertionError(f"rig path: kernel launches {counts}")
+    if not same:
+        raise AssertionError("rig path: rig_bundle_adjuster's model differs "
+                             "from the in-process solve")
+    if not (c1 < 0.2 * c0 and rms < 0.75):
+        raise AssertionError(f"rig path: cost {c0} -> {c1}, RMS {rms}")
+    if max(rot_err) >= 0.1 or max(t_err) >= 0.02 * RIG_BASELINE:
+        raise AssertionError(f"rig path: mounts off {rot_err} {t_err}")
+    if not (bool(res.valid[0]) and gpnp_err < 1e-4):
+        raise AssertionError(f"rig path: gpnp pose error {gpnp_err}")
+    if not (bool(v17[0, 0]) and r17_err < 1e-5):
+        raise AssertionError(f"rig path: 17-point R error {r17_err}")
+    if peak >= 40.0:
+        raise AssertionError(f"rig path: peak device memory {peak} GiB")
+    return counts
+
+
+def _rig_ray_pairs(truth: dict, s1: int, s2: int) -> tuple:
+    """One ray pair per point seen in snapshots s1 and s2 (true rig
+    frames, clean pixels): its k-th point takes the k-th of the cameras
+    that see it in s1 and the (k + 1)-th in s2, cyclically. Returns (q1,
+    c1, q2, c2), each (n, 3)."""
+    common = np.nonzero(truth["seen"][s1].any(0)
+                        & truth["seen"][s2].any(0))[0]
+    rays = []
+    for s in (s1, s2):
+        _, o, d, pp, _ = rig_rays(truth, s, common)
+        by_point = {}
+        for k in range(len(pp)):
+            by_point.setdefault(int(pp[k]), []).append((o[k], d[k]))
+        rays.append(by_point)
+    q1, c1, q2, c2 = [], [], [], []
+    for k, p in enumerate(common):
+        a = rays[0][int(p)][k % len(rays[0][int(p)])]
+        b = rays[1][int(p)][(k + 1) % len(rays[1][int(p)])]
+        c1.append(a[0])
+        q1.append(a[1])
+        c2.append(b[0])
+        q2.append(b[1])
+    return tuple(np.stack(x) for x in (q1, c1, q2, c2))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--num-images", type=int, default=PLANTED_IMAGES,
@@ -2458,14 +3047,26 @@ def main() -> int:
         if info.get("ptxas"):
             print("  " + info["ptxas"].replace("\n", "\n  "), flush=True)
 
+    work = tempfile.TemporaryDirectory()
+    try:
+        return _run(args, dev, card, mk, tm, t_start, work.name)
+    finally:
+        _stop(_STARTED)
+        work.cleanup()
+
+
+def _run(args, dev, card: str, mk, tm, t_start: float, work: str) -> int:
+    """main()'s phases after the build; `work` outlives the database
+    path for the commands path and the mapper process."""
     k1 = kernel_phase(mk, dev, card)
     k2, k4, k3 = top2_phase(tm, dev, card)
     tool = tool_path(card)
     if args.max_features != 8192:
         print(f"== pixel and distorted paths cut to max_num_features "
               f"{args.max_features} (default 8192)", flush=True)
-    print(f"== pixel path cut to {PIXEL_IMAGES} images (50 until the "
-          "parallel path joined, 100 before the distorted path)", flush=True)
+    print(f"== pixel path cut to {PIXEL_IMAGES} images (30 until the "
+          "commands and rig paths joined, 50 until the parallel path did, "
+          "100 before the distorted path)", flush=True)
     pixel, *_ = pixel_path(dev, card, PIXEL_IMAGES, args.max_features)
     print(f"== distorted path cut to {DISTORTED_IMAGES} images (80 until "
           "the retrieval path joined, 100 until the distributed path did)",
@@ -2483,15 +3084,19 @@ def main() -> int:
         _profile_5pt(dev, card)
     planted = main_path(dev, card, args.num_images, args.breakdown)
     dist, dist_state = distributed_path(dev, card)
-    database = database_path(dev, card)
+    database, db_state = database_path(dev, card, work)
+    commands = commands_path(dev, card, db_state)
     retrieval = retrieval_path(dev, card, modes)
     bapath, ba_state = ba_path(dev, card)
     parallel = parallel_path(dev, card, dist_state, ba_state)
     del dist_state, ba_state
+    rig = rig_path(dev, card)
+    finish_mapper(card, db_state)
     paths = {"tool": tool, "planted": planted, "pixel": pixel,
-             "distorted": distorted, "dense": dense, "entry": entry, "distributed": dist,
-             "database": database, "retrieval": retrieval, "ba": bapath,
-             "parallel": parallel}
+             "distorted": distorted, "dense": dense, "entry": entry,
+             "distributed": dist, "database": database,
+             "commands": commands, "retrieval": retrieval, "ba": bapath,
+             "parallel": parallel, "rig": rig}
     for e, path in ((k1, "distorted"), (k2, "entry"), (k3, "entry"),
                     (k4, "tool")):
         e["launches"] = paths[path][e["name"]]

@@ -5,24 +5,27 @@ subpackages and module names so each counterpart sits at the same path.
 It imports `torch` and numpy only — never `jax`, never `dagsfm_tpu`.
 
 Ported so far (the per-cluster reconstruction from rendered pixels, the
-distributed mapper around it, COLMAP's database workflow, and the
-parallel layer):
+distributed mapper around it, COLMAP's database workflow, the parallel
+layer, pair selection, the dense path, the model and database commands,
+and camera rigs):
   ops/       — rotations, polynomials, triangulation, epipolar (E, F, H),
                RANSAC with injectable sampling, Umeyama, P3P, EPnP,
                pose refinement, projection, E/F/H two-view classification,
+               generalized (rig) absolute and relative pose,
                NaN-on-failure solves, and every TPU kernel as CUDA
                (csrc/): the fused matcher K1 and the top-2 matchers
                K2-K4, built by ops/cuda_build.py
   scene/     — all eleven camera models (distortion, Newton
                undistortion, the BA intrinsics increment),
                reconstruction containers, COLMAP .bin
-               I/O, synthetic scenes and rendered images
+               I/O, synthetic scenes and rendered images, camera rigs
   features/  — SIFT, descriptor bank, exhaustive pair matching, guided
                matching
   sfm/       — correspondence graph, bundle adjustment (dense Schur and
                iterative PCG, each also joint with the intrinsics),
                incremental mapper (focal grid for cameras without a
-               prior), Sim(3) cluster merge (aligner), track selection
+               prior), Sim(3) cluster merge (aligner), track selection,
+               rig bundle adjustment
   graph/     — view graph (components, spanning tree, rotation-cycle
                filter) and ctypes bindings of native/build/libgraphcore.so
   clustering/ — spectral clustering on the device, community detection,
@@ -37,6 +40,7 @@ parallel layer):
                for worker processes, clusters on threads, and the sharded
                final BA and pair matching
   tools/     — matcher_mfu, the matcher's stage split on the card
+  utils/     — GPS conversions, project options (.ini files, presets)
   interop.py — turns the JAX package's state (numpy / dicts) into the
                port's containers
 

@@ -3,9 +3,9 @@
 The JAX side hands over plain data: `SceneArrays._asdict()` with numpy
 values, a Reconstruction's cameras / images / points as dicts of records
 (any objects with the reference's field names), descriptor / mask
-dicts, view graphs and image clusters (objects with the reference's
-field names), vocab trees (levels, proj, thresholds as arrays), options
-as plain dicts (`NamedTuple._asdict()`,
+dicts, view graphs, image clusters and camera rigs (objects with the
+reference's field names), vocab trees (levels, proj, thresholds as
+arrays), problems and options as plain dicts (`NamedTuple._asdict()`,
 `dataclasses.asdict`) and SIFT outputs as numpy arrays. Nothing here
 imports the JAX package.
 """
@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from dagsfm_tpu_torch import device as devmod
 from dagsfm_tpu_torch.clustering.image_clustering import (ClusteringOptions,
@@ -39,6 +40,7 @@ from dagsfm_tpu_torch.pipeline.distributed_mapper import \
 from dagsfm_tpu_torch.pipeline.feature_pipeline import (
     FeaturePipelineOptions, TwoViewRecord)
 from dagsfm_tpu_torch.scene import cameras as cm
+from dagsfm_tpu_torch.scene.camera_rig import CameraRig
 from dagsfm_tpu_torch.scene.reconstruction import (ImageRecord, Point3DRecord,
                                                    Reconstruction, SceneArrays,
                                                    scene_arrays_from_numpy)
@@ -46,10 +48,12 @@ from dagsfm_tpu_torch.scene.reconstruction_manager import \
     ReconstructionManager
 from dagsfm_tpu_torch.scene.undistortion import UndistortOptions
 from dagsfm_tpu_torch.sfm import bundle_adjustment as ba
+from dagsfm_tpu_torch.sfm import rig_bundle_adjustment as rba
 from dagsfm_tpu_torch.sfm.aligner import AlignerOptions
 from dagsfm_tpu_torch.sfm.incremental_mapper import MapperOptions
 from dagsfm_tpu_torch.sfm.mapper_controller import ControllerOptions
 from dagsfm_tpu_torch.sfm.track_selection import TrackSelectionOptions
+from dagsfm_tpu_torch.utils.options import ProjectOptions
 
 
 def scene_arrays(fields: dict, device=None) -> SceneArrays:
@@ -300,3 +304,46 @@ def meshing_options(fields: dict) -> mvs_meshing.MeshingOptions:
 def undistort_options(fields: dict) -> UndistortOptions:
     """UndistortOptions from the reference's `dataclasses.asdict(...)`."""
     return UndistortOptions(**fields)
+
+
+def rig_ba_problem(fields: dict, device=None) -> rba.RigBAProblem:
+    """Port RigBAProblem from the reference's `RigBAProblem._asdict()`:
+    int64 indices, float64 values on `device`."""
+    dev = devmod.resolve(device)
+    out = {}
+    for k, v in fields.items():
+        a = np.asarray(v)
+        out[k] = (torch.as_tensor(a.astype(np.int64), device=dev)
+                  if a.dtype.kind in "iu" else devmod.as_tensor(a, dev))
+    return rba.RigBAProblem(**out)
+
+
+def rig_ba_options(fields: dict) -> rba.RigBAOptions:
+    """RigBAOptions from the reference's `RigBAOptions._asdict()`."""
+    return rba.RigBAOptions(**fields)
+
+
+def camera_rig(rig) -> CameraRig:
+    """Port CameraRig from the reference's (mounts, snapshots and the
+    reference camera, ids as ints)."""
+    out = CameraRig(ref_camera_id=(None if rig.ref_camera_id is None
+                                   else int(rig.ref_camera_id)))
+    for cid in rig.cam_from_rig_q:
+        out.add_camera(int(cid), np.array(rig.cam_from_rig_q[cid], float),
+                       np.array(rig.cam_from_rig_t[cid], float))
+    for snap in rig.snapshots:
+        out.add_snapshot([int(i) for i in snap])
+    return out
+
+
+def project_options(opts) -> ProjectOptions:
+    """Port ProjectOptions from the reference's (a dataclass or
+    `dataclasses.asdict(...)`)."""
+    f = _plain(opts)
+    return ProjectOptions(
+        **{k: v for k, v in f.items()
+           if k not in ("clustering", "mapper", "track_selection")},
+        clustering=ClusteringOptions(**_plain(f["clustering"])),
+        mapper=MapperOptions(**_plain(f["mapper"])),
+        track_selection=TrackSelectionOptions(
+            **_plain(f["track_selection"])))

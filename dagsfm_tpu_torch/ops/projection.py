@@ -25,6 +25,13 @@ def project_simple(qvec, tvec, focal, pp, xyz):
     return Xc[..., :2] / zs[..., None] * focal + pp, z
 
 
+def project_full(model_id, params, qvec, tvec, xyz):
+    """Projection through any camera model (per-element model ids) ->
+    (pixels, depth)."""
+    Xc = world_to_cam(qvec, tvec, xyz)
+    return cm.img_from_cam(model_id, params, Xc), Xc[..., 2]
+
+
 def reproj_errors_obs(scene):
     """Per-observation reprojection error of a SceneArrays:
     (errors (N,), depths (N,), mask (N,))."""
@@ -46,6 +53,17 @@ def mean_reproj_error(scene) -> torch.Tensor:
     good = mask & (depth > 0)
     return torch.sum(torch.where(good, err, 0.0)) / torch.clamp(
         good.sum(), min=1)
+
+
+def angular_error(qvec, tvec, xyz, ray):
+    """Angle (radians) between an observed ray and the point's direction
+    in the camera frame."""
+    Xc = world_to_cam(qvec, tvec, xyz)
+    Xc = Xc / torch.clamp(torch.linalg.norm(Xc, dim=-1, keepdim=True),
+                          min=1e-12)
+    r = ray / torch.clamp(torch.linalg.norm(ray, dim=-1, keepdim=True),
+                          min=1e-12)
+    return torch.arccos(torch.clamp(torch.sum(Xc * r, dim=-1), -1.0, 1.0))
 
 
 def triangulation_angles(q1, t1, q2, t2, xyz):

@@ -13,6 +13,7 @@ The pair batch is a written-out leading dimension B (the reference vmaps
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -105,3 +106,12 @@ def ransac(solver: Callable, residual_fn: Callable, data: tuple,
     final_score = torch.sum(
         torch.where(mask, torch.minimum(final_r, thr[:, None]), 0.0), -1)
     return RansacResult(best_model, inliers, num_inl, final_score, valid)
+
+
+def num_trials_for_confidence(inlier_ratio: float, sample_size: int,
+                              confidence: float = 0.9999) -> int:
+    """The classic RANSAC trial count (COLMAP's ComputeNumTrials), for
+    sizing a fixed hypothesis budget."""
+    p_good = max(inlier_ratio ** sample_size, 1e-12)
+    return int(math.ceil(math.log(max(1 - confidence, 1e-12))
+                         / math.log(1 - p_good)))

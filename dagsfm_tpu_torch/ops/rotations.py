@@ -139,11 +139,52 @@ def rotmat_to_angleaxis(R: torch.Tensor) -> torch.Tensor:
     return quat_to_angleaxis(rotmat_to_quat(R))
 
 
+def angleaxis_rotate(aa: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v by angle-axis aa (Rodrigues, no matrix); below
+    theta^2 = 1e-8 the first-order v + aa x v."""
+    theta2 = torch.sum(aa * aa, dim=-1, keepdim=True)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS))
+    small = theta2 < 1e-8
+    axis = aa / torch.where(small, torch.ones_like(theta), theta)
+    cos_t = torch.where(small, 1.0 - theta2 / 2.0, torch.cos(theta))
+    sin_t = torch.where(small, theta - theta2 * theta / 6.0,
+                        torch.sin(theta))
+    axis, v = torch.broadcast_tensors(axis, v)
+    rot = v * cos_t + torch.linalg.cross(axis, v, dim=-1) * sin_t + \
+        axis * torch.sum(axis * v, dim=-1, keepdim=True) * (1.0 - cos_t)
+    aa_b = aa.expand(v.shape)
+    return torch.where(small, v + torch.linalg.cross(aa_b, v, dim=-1), rot)
+
+
 def rotation_angle_deg(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
     """Geodesic angle in degrees between rotation matrices."""
     Rrel = R1.transpose(-1, -2) @ R2
     tr = Rrel.diagonal(dim1=-2, dim2=-1).sum(-1)
     return torch.rad2deg(torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)))
+
+
+def relative_rotation(R_i: torch.Tensor, R_j: torch.Tensor) -> torch.Tensor:
+    """R_ij such that R_j = R_ij @ R_i (world->cam rotations)."""
+    return R_j @ R_i.transpose(-1, -2)
+
+
+def project_to_rotmat(M: torch.Tensor) -> torch.Tensor:
+    """The rotation closest to M (..., 3, 3): SVD with the determinant's
+    sign on the last singular direction."""
+    U, _, Vt = torch.linalg.svd(M)
+    D = torch.ones(M.shape[:-2] + (3,), dtype=M.dtype, device=M.device)
+    D[..., 2] = torch.sign(torch.linalg.det(U @ Vt))
+    return (U * D[..., None, :]) @ Vt
+
+
+def compose_pose(R1, t1, R2, t2):
+    """World->cam poses composed: (R1, t1) first, then (R2, t2)."""
+    return R2 @ R1, (R2 @ t1[..., None])[..., 0] + t2
+
+
+def invert_pose(R, t):
+    Rt = R.transpose(-1, -2)
+    return Rt, -(Rt @ t[..., None])[..., 0]
 
 
 def camera_center(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

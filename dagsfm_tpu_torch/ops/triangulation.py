@@ -41,6 +41,11 @@ def triangulate_dlt(qvecs: torch.Tensor, tvecs: torch.Tensor,
     return X[..., :3] / wc[..., None]
 
 
+# triangulate_dlt batches over its leading dims already: (B, K, ...) in,
+# (B, 3) out, as the reference's vmap of its one-track DLT
+triangulate_dlt_batch = triangulate_dlt
+
+
 def triangulate_two_view(qvec1, tvec1, qvec2, tvec2, uv1, uv2):
     """Batched two-view DLT: (..., 2) normalized coords -> (..., 3)."""
     qvecs = torch.stack([qvec1, qvec2], dim=-2)

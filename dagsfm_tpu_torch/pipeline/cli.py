@@ -26,9 +26,32 @@ and those of the dense path:
   poisson_mesher         a fused point cloud with normals -> Poisson mesh
   delaunay_mesher        a fused point cloud -> Delaunay surface mesh
 
+the commands on a database or a model:
+
+  mapper                 incremental mapping of a database into models
+                         under output_path/0, /1, ...
+  point_triangulator     triangulate a model's images from the database,
+                         poses held
+  image_registrator      register the database's other images into a
+                         model, no triangulation or BA
+  bundle_adjuster        global BA of a model (first two images held)
+  rig_bundle_adjuster    rig-constrained BA under a JSON rig config
+  sfm_aligner            merge the models in a directory's subdirectories
+  model_merger           merge two overlapping models by Sim(3)
+  model_aligner          Sim(3)-align a model to reference camera centres
+  model_analyzer         a model's statistics as one JSON line
+  point_filtering        delete points by track length and error
+  image_deleter          deregister images listed by id or name
+  image_filterer         deregister images by intrinsics and observations
+  database_creator       an empty database
+  database_merger        two databases merged into a new one
+  matches_importer       raw matches from a text file into a database
+  feature_importer       features from COLMAP text files into a database
+  project_generator      a project .ini with a quality preset
+  synthetic_scene        a synthetic ring scene's ground-truth model
+
 Every command that computes on a device takes `--device` (default
-`cuda`; `cpu` runs on the CPU); model_converter and delaunay_mesher run
-on the host alone.
+`cuda`; `cpu` runs on the CPU); the others run on the host alone.
 """
 
 from __future__ import annotations
@@ -288,6 +311,394 @@ def cmd_delaunay_mesher(args):
           f"-> {args.output_path}")
 
 
+def cmd_mapper(args):
+    """Multi-model incremental mapping of a database's verified matches;
+    the models written under output_path/0, /1, ... (no snapshots)."""
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import FeaturePipeline
+    from dagsfm_tpu_torch.sfm.mapper_controller import (ControllerOptions,
+                                                        MapperController)
+    fp = FeaturePipeline({}, {}, device=args.device,
+                         database_path=args.database_path)
+    cams, images, graph = fp.load_from_database(args.database_path)
+    mgr = MapperController(cams, images, graph, ControllerOptions(),
+                           device=args.device).run()
+    mgr.write(args.output_path)
+    for k, rec in enumerate(mgr):
+        print(f"model {k}: {rec.num_reg_images()} images, "
+              f"{rec.num_points3D()} points")
+    total = sum(r.num_reg_images() for r in mgr)
+    print(f"registered {total}/{len(images)} images in {len(mgr)} "
+          f"model(s) -> {args.output_path}")
+
+
+def cmd_sfm_aligner(args):
+    """Merge the .bin models in input_path's subdirectories (sorted by
+    name) by Sim(3) into one."""
+    from dagsfm_tpu_torch.scene import io as scene_io
+    from dagsfm_tpu_torch.sfm.aligner import SfMAligner
+    recs = []
+    for d in sorted(os.listdir(args.input_path)):
+        p = os.path.join(args.input_path, d)
+        if os.path.isdir(p) and os.path.exists(
+                os.path.join(p, "cameras.bin")):
+            recs.append(scene_io.read_model_bin(p))
+    if not recs:
+        raise SystemExit("no partial reconstructions found")
+    merged = SfMAligner(recs, device=args.device).align()
+    os.makedirs(args.output_path, exist_ok=True)
+    scene_io.write_model_bin(merged, args.output_path)
+    print(f"merged {len(recs)} partitions -> {merged.num_reg_images()} "
+          f"images, {merged.num_points3D()} points")
+
+
+def cmd_bundle_adjuster(args):
+    """Global bundle adjustment of a .bin model, its first two images
+    held constant."""
+    from dagsfm_tpu_torch import device as devmod
+    from dagsfm_tpu_torch.scene import io as scene_io
+    from dagsfm_tpu_torch.sfm import bundle_adjustment as ba
+    rec = scene_io.read_model_bin(args.input_path)
+    arrays, ids = rec.to_arrays(devmod.resolve(args.device))
+    const = np.zeros(arrays.image_qvec.shape[0], bool)
+    const[:2] = True
+    prob, stats = ba.solve(ba.make_problem(arrays, const_image=const),
+                           ba.BAOptions(max_iterations=args.max_num_iterations))
+    rec.update_from_arrays(arrays._replace(
+        image_qvec=prob.image_qvec, image_tvec=prob.image_tvec,
+        points_xyz=prob.points), ids)
+    os.makedirs(args.output_path, exist_ok=True)
+    scene_io.write_model_bin(rec, args.output_path)
+    print(f"BA cost {float(stats.initial_cost):.2f} -> "
+          f"{float(stats.final_cost):.2f}")
+
+
+def cmd_database_creator(args):
+    """An empty database with COLMAP's schema."""
+    from dagsfm_tpu_torch.scene.io import ColmapDatabase
+    ColmapDatabase(args.database_path).close()
+    print(f"created {args.database_path}")
+
+
+def cmd_matches_importer(args):
+    """Raw matches from a text file into the database: blocks of a
+    'name1 name2' line, then 'i j' keypoint rows, blank-line separated."""
+    from dagsfm_tpu_torch.scene.io import ColmapDatabase
+    n = 0
+    with ColmapDatabase(args.database_path) as db:
+        name_to_id = {name: iid for iid, (name, _)
+                      in db.read_images().items()}
+        cur_pair, rows = None, []
+
+        def flush():
+            nonlocal n
+            if cur_pair and rows:
+                db.add_matches(cur_pair[0], cur_pair[1],
+                               np.asarray(rows, np.uint32))
+                n += 1
+            rows.clear()
+
+        with open(args.match_list_path) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    flush()
+                    cur_pair = None
+                elif len(parts) == 2 and parts[0] in name_to_id:
+                    flush()
+                    cur_pair = (name_to_id[parts[0]], name_to_id[parts[1]])
+                elif cur_pair and len(parts) == 2:
+                    rows.append((int(parts[0]), int(parts[1])))
+        flush()
+    print(f"imported matches for {n} pairs")
+
+
+def _seeded_mapper(args, rec, with_points: bool):
+    """An IncrementalMapper over the database's images and matches with
+    the model's registered poses installed (matched by image name), and
+    with its points where `with_points` (tracks kept on registered
+    images, at least two)."""
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import FeaturePipeline
+    from dagsfm_tpu_torch.sfm.incremental_mapper import (IncrementalMapper,
+                                                         MapperOptions)
+    fp = FeaturePipeline({}, {}, device=args.device,
+                         database_path=args.database_path)
+    cams, images, graph = fp.load_from_database(args.database_path)
+    mapper = IncrementalMapper(cams, images, graph, MapperOptions(),
+                               device=args.device)
+    name_to_db = {im.name: iid for iid, im in images.items()}
+    for iid in rec.reg_image_ids:
+        did = name_to_db.get(rec.images[iid].name)
+        if did is None:
+            continue
+        mapper.rec.images[did].qvec = rec.images[iid].qvec
+        mapper.rec.images[did].tvec = rec.images[iid].tvec
+        mapper.rec.register_image(did)
+    if with_points:
+        for pt in rec.points3D.values():
+            track = []
+            for (iid, kp) in pt.track:
+                did = name_to_db.get(rec.images[iid].name)
+                if did is not None and mapper.rec.images[did].registered:
+                    track.append((did, kp))
+            if len(track) >= 2:
+                mapper.rec.add_point3D(pt.xyz, track, color=pt.color,
+                                       error=pt.error)
+    return mapper
+
+
+def cmd_point_triangulator(args):
+    """Triangulate a .bin model's registered images, poses held, from the
+    database's matches."""
+    from dagsfm_tpu_torch.scene import io as scene_io
+    mapper = _seeded_mapper(args, scene_io.read_model_bin(args.input_path),
+                            with_points=False)
+    n_tri = sum(mapper.triangulate_image(did)
+                for did in mapper.rec.reg_image_ids)
+    out = mapper.rec
+    os.makedirs(args.output_path, exist_ok=True)
+    scene_io.write_model_bin(out, args.output_path)
+    print(f"triangulated {n_tri} observations, "
+          f"{out.num_points3D()} points -> {args.output_path}")
+
+
+def cmd_image_registrator(args):
+    """Register the database's other images into a model (its poses and
+    points kept) by 2D-3D RANSAC, with no triangulation or BA."""
+    from dagsfm_tpu_torch.scene import io as scene_io
+    mapper = _seeded_mapper(args, _read_model(args.input_path),
+                            with_points=True)
+    n = 0
+    for did in sorted(mapper.rec.images):
+        if not mapper.rec.images[did].registered and \
+                mapper.register_next_image(did):
+            n += 1
+    os.makedirs(args.output_path, exist_ok=True)
+    scene_io.write_model_bin(mapper.rec, args.output_path)
+    print(f"registered {n} new images "
+          f"({mapper.rec.num_reg_images()} total)")
+
+
+def cmd_model_analyzer(args):
+    """A .bin model's statistics as one JSON line."""
+    from dagsfm_tpu_torch.scene import io as scene_io
+    rec = scene_io.read_model_bin(args.input_path)
+    tr = [len(p.track) for p in rec.points3D.values()]
+    obs = int(np.sum(tr)) if tr else 0
+    print(json.dumps({
+        "num_cameras": len(rec.cameras),
+        "num_images": len(rec.images),
+        "num_reg_images": rec.num_reg_images(),
+        "num_points3D": rec.num_points3D(),
+        "num_observations": obs,
+        "mean_track_length": round(float(np.mean(tr)) if tr else 0.0, 3),
+        "mean_observations_per_image": round(
+            obs / max(rec.num_reg_images(), 1), 3),
+        "mean_reprojection_error_px": round(
+            rec.compute_mean_reprojection_error(), 4),
+    }))
+
+
+def cmd_model_merger(args):
+    """Merge two overlapping .bin models by Sim(3)."""
+    from dagsfm_tpu_torch.scene import io as scene_io
+    from dagsfm_tpu_torch.sfm.aligner import SfMAligner
+    merged = SfMAligner([scene_io.read_model_bin(args.input_path1),
+                         scene_io.read_model_bin(args.input_path2)],
+                        device=args.device).align()
+    os.makedirs(args.output_path, exist_ok=True)
+    scene_io.write_model_bin(merged, args.output_path)
+    print(f"merged -> {merged.num_reg_images()} images, "
+          f"{merged.num_points3D()} points")
+
+
+def cmd_model_aligner(args):
+    """Sim(3)-align a .bin model to reference camera centres, one
+    `name x y z` line each (Umeyama on the registered images named)."""
+    from dagsfm_tpu_torch.ops import rotations as rops
+    from dagsfm_tpu_torch.ops.umeyama import umeyama_np
+    from dagsfm_tpu_torch.scene import io as scene_io
+    rec = scene_io.read_model_bin(args.input_path)
+    refs = {}
+    with open(args.ref_images_path) as f:
+        for line in f:
+            p = line.split()
+            if len(p) >= 4:
+                refs[p[0]] = [float(x) for x in p[1:4]]
+    src, dst = [], []
+    for iid in rec.reg_image_ids:
+        im = rec.images[iid]
+        if im.name in refs:
+            src.append(-rops.quat_to_rotmat_np(im.qvec).T @ im.tvec)
+            dst.append(refs[im.name])
+    if len(src) < 3:
+        raise SystemExit("need >= 3 reference locations")
+    src, dst = np.stack(src), np.stack(dst)
+    s, R, t = umeyama_np(src, dst, with_scale=True)
+    rec.transform(float(s), np.asarray(R), np.asarray(t))
+    os.makedirs(args.output_path, exist_ok=True)
+    scene_io.write_model_bin(rec, args.output_path)
+    err = np.linalg.norm(float(s) * src @ np.asarray(R).T + np.asarray(t)
+                         - dst, axis=1)
+    print(f"aligned with {len(src)} refs, mean error "
+          f"{err.mean():.4f} -> {args.output_path}")
+
+
+def cmd_point_filtering(args):
+    """Delete the points of short tracks or large reprojection error."""
+    from dagsfm_tpu_torch.scene import io as scene_io
+    rec = scene_io.read_model_bin(args.input_path)
+    drop = [pid for pid, pt in rec.points3D.items()
+            if len(pt.track) < args.min_track_len
+            or (pt.error >= 0 and pt.error > args.max_reproj_error)]
+    for pid in drop:
+        rec.delete_point3D(pid)
+    os.makedirs(args.output_path, exist_ok=True)
+    scene_io.write_model_bin(rec, args.output_path)
+    print(f"filtered {len(drop)} points, kept {rec.num_points3D()}")
+
+
+def cmd_database_merger(args):
+    """Merge two databases into a new one."""
+    from dagsfm_tpu_torch.scene.io import ColmapDatabase
+    if os.path.exists(args.merged_database_path):
+        raise SystemExit("ERROR: Merged database file must not exist.")
+    with ColmapDatabase(args.database_path1) as db1, \
+            ColmapDatabase(args.database_path2) as db2, \
+            ColmapDatabase(args.merged_database_path) as out:
+        ColmapDatabase.merge(db1, db2, out)
+        n_img = len(out.read_images())
+        n_tvg = out.num_two_view_geometries()
+    print(f"merged -> {n_img} images, {n_tvg} two-view geometries")
+
+
+def cmd_project_generator(args):
+    """A project .ini with a quality preset applied."""
+    from dagsfm_tpu_torch.utils.options import (ProjectOptions,
+                                                apply_quality_preset,
+                                                save_project)
+    opts = ProjectOptions()
+    apply_quality_preset(opts, args.quality.lower())
+    save_project(opts, args.output_path)
+    print(f"project ({args.quality}) -> {args.output_path}")
+
+
+def cmd_feature_importer(args):
+    """Features from COLMAP text files `<image name>.txt` (a header `N
+    128`, then rows `x y scale orientation d0 .. d127`); an image the
+    database lacks gets a new default camera. Descriptors are
+    renormalised to 512 and stored as uint8."""
+    from dagsfm_tpu_torch.scene import cameras as cm
+    from dagsfm_tpu_torch.scene.io import ColmapDatabase
+    n_img = 0
+    with ColmapDatabase(args.database_path) as db:
+        existing = {name: iid for iid, (name, _) in db.read_images().items()}
+        for fname in sorted(os.listdir(args.import_path)):
+            if not fname.endswith(".txt"):
+                continue
+            name = fname[:-4]
+            rows = np.loadtxt(os.path.join(args.import_path, fname),
+                              skiprows=1, ndmin=2)
+            if name in existing:
+                iid = existing[name]
+            else:
+                cam = cm.make_simple_camera(len(existing) + n_img + 1,
+                                            args.default_width,
+                                            args.default_height)
+                db.add_camera(cam)
+                iid = db.add_image(name, cam.camera_id)
+            if rows.size:
+                db.add_keypoints(iid, rows[:, :4].astype(np.float32))
+                desc = rows[:, 4:132]
+                norm = np.linalg.norm(desc, axis=1, keepdims=True)
+                db.add_descriptors(iid, np.clip(np.round(
+                    desc / np.maximum(norm, 1e-9) * 512), 0, 255).astype(
+                    np.uint8))
+            n_img += 1
+    print(f"imported features for {n_img} images")
+
+
+def cmd_image_deleter(args):
+    """Deregister the images listed by id and by name (one per line)."""
+    from dagsfm_tpu_torch.scene import io as scene_io
+    rec = _read_model(args.input_path)
+    by_name = {im.name: i for i, im in rec.images.items()}
+    n = 0
+    for path, key in ((args.image_ids_path, "image_id"),
+                      (args.image_names_path, "image_name")):
+        if not path:
+            continue
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                value = int(line) if key == "image_id" else line
+                iid = value if key == "image_id" else by_name.get(value)
+                if iid in rec.images and rec.images[iid].registered:
+                    rec.deregister_image(iid)
+                    n += 1
+                else:
+                    print(f"WARNING: Skipping {key}={value}")
+    os.makedirs(args.output_path, exist_ok=True)
+    scene_io.write_model_bin(rec, args.output_path)
+    print(f"deleted {n} images")
+
+
+def cmd_image_filterer(args):
+    """Deregister the images of cameras with implausible intrinsics, then
+    those that see fewer than --min_num_observations points."""
+    from dagsfm_tpu_torch.scene import io as scene_io
+    rec = _read_model(args.input_path)
+    before = rec.num_reg_images()
+    rec.filter_images(args.min_focal_length_ratio,
+                      args.max_focal_length_ratio, args.max_extra_param)
+    for iid in [i for i in rec.reg_image_ids
+                if rec.images[i].num_points3D() < args.min_num_observations]:
+        rec.deregister_image(iid)
+    os.makedirs(args.output_path, exist_ok=True)
+    scene_io.write_model_bin(rec, args.output_path)
+    print(f"Filtered {before - rec.num_reg_images()} images "
+          f"from a total of {before} images")
+
+
+def cmd_rig_bundle_adjuster(args):
+    """Rig-constrained global BA of a model under a JSON rig config; the
+    mounts refined unless --refine_relative_poses 0."""
+    from dagsfm_tpu_torch.scene import camera_rig as crig
+    from dagsfm_tpu_torch.scene import io as scene_io
+    from dagsfm_tpu_torch.sfm import rig_bundle_adjustment as rba
+    rec = _read_model(args.input_path)
+    rigs = crig.read_rig_config(args.rig_config_path, rec)
+    for k, rig in enumerate(rigs):
+        print(f"Camera Rig {k + 1}: {rig.num_cameras} cameras, "
+              f"{rig.num_snapshots} snapshots")
+    prob, meta = crig.make_rig_ba_problem(rec, rigs, device=args.device)
+    out = rba.solve(prob, rba.RigBAOptions(
+        max_iterations=args.max_num_iterations,
+        refine_relative_poses=bool(args.refine_relative_poses)))
+    crig.apply_rig_ba_result(rec, rigs, out, meta)
+    os.makedirs(args.output_path, exist_ok=True)
+    scene_io.write_model_bin(rec, args.output_path)
+    print(f"rig BA cost {float(out.initial_cost):.2f} -> "
+          f"{float(out.final_cost):.2f}")
+
+
+def cmd_synthetic_scene(args):
+    """A synthetic ring scene's ground-truth model (every image
+    registered) as .bin."""
+    from dagsfm_tpu_torch.scene import io as scene_io
+    from dagsfm_tpu_torch.scene import synthetic
+    sc = synthetic.generate(synthetic.SyntheticSceneSpec(
+        num_cameras=args.num_cameras, num_points=args.num_points,
+        pixel_noise=args.pixel_noise, seed=args.seed))
+    os.makedirs(args.output_path, exist_ok=True)
+    scene_io.write_model_bin(synthetic.to_reconstruction(sc),
+                             args.output_path)
+    print(json.dumps({"num_cameras": args.num_cameras,
+                      "num_points": args.num_points,
+                      "output": args.output_path}))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dagsfm_tpu_torch",
@@ -374,6 +785,98 @@ def build_parser() -> argparse.ArgumentParser:
         ("--output_path", dict(required=True)),
         ("--max_edge_factor", dict(type=float, default=3.0)),
     ], device=False)
+    add("mapper", cmd_mapper, [
+        ("--database_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+    ])
+    add("sfm_aligner", cmd_sfm_aligner, [
+        ("--input_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+    ])
+    add("bundle_adjuster", cmd_bundle_adjuster, [
+        ("--input_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+        ("--max_num_iterations", dict(type=int, default=50)),
+    ])
+    add("synthetic_scene", cmd_synthetic_scene, [
+        ("--output_path", dict(required=True)),
+        ("--num_cameras", dict(type=int, default=20)),
+        ("--num_points", dict(type=int, default=500)),
+        ("--pixel_noise", dict(type=float, default=0.5)),
+        ("--seed", dict(type=int, default=0)),
+    ], device=False)
+    add("database_creator", cmd_database_creator, [
+        ("--database_path", dict(required=True)),
+    ], device=False)
+    add("matches_importer", cmd_matches_importer, [
+        ("--database_path", dict(required=True)),
+        ("--match_list_path", dict(required=True)),
+    ], device=False)
+    add("point_triangulator", cmd_point_triangulator, [
+        ("--database_path", dict(required=True)),
+        ("--input_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+    ])
+    add("model_analyzer", cmd_model_analyzer, [
+        ("--input_path", dict(required=True)),
+    ], device=False)
+    add("model_merger", cmd_model_merger, [
+        ("--input_path1", dict(required=True)),
+        ("--input_path2", dict(required=True)),
+        ("--output_path", dict(required=True)),
+    ])
+    add("model_aligner", cmd_model_aligner, [
+        ("--input_path", dict(required=True)),
+        ("--ref_images_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+    ], device=False)
+    add("point_filtering", cmd_point_filtering, [
+        ("--input_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+        ("--min_track_len", dict(type=int, default=2)),
+        ("--max_reproj_error", dict(type=float, default=4.0)),
+    ], device=False)
+    add("database_merger", cmd_database_merger, [
+        ("--database_path1", dict(required=True)),
+        ("--database_path2", dict(required=True)),
+        ("--merged_database_path", dict(required=True)),
+    ], device=False)
+    add("project_generator", cmd_project_generator, [
+        ("--output_path", dict(required=True)),
+        ("--quality", dict(default="high")),
+    ], device=False)
+    add("feature_importer", cmd_feature_importer, [
+        ("--database_path", dict(required=True)),
+        ("--import_path", dict(required=True)),
+        ("--default_width", dict(type=int, default=1024)),
+        ("--default_height", dict(type=int, default=768)),
+    ], device=False)
+    add("image_deleter", cmd_image_deleter, [
+        ("--input_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+        ("--image_ids_path", dict(default="")),
+        ("--image_names_path", dict(default="")),
+    ], device=False)
+    add("image_filterer", cmd_image_filterer, [
+        ("--input_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+        ("--min_focal_length_ratio", dict(type=float, default=0.1)),
+        ("--max_focal_length_ratio", dict(type=float, default=10.0)),
+        ("--max_extra_param", dict(type=float, default=100.0)),
+        ("--min_num_observations", dict(type=int, default=10)),
+    ], device=False)
+    add("image_registrator", cmd_image_registrator, [
+        ("--database_path", dict(required=True)),
+        ("--input_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+    ])
+    add("rig_bundle_adjuster", cmd_rig_bundle_adjuster, [
+        ("--input_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+        ("--rig_config_path", dict(required=True)),
+        ("--max_num_iterations", dict(type=int, default=50)),
+        ("--refine_relative_poses", dict(type=int, default=1)),
+    ])
     return p
 
 

@@ -64,6 +64,7 @@ CAMERA_MODEL_NUM_PARAMS = {
 _SINGLE_FOCAL = (SIMPLE_PINHOLE, SIMPLE_RADIAL, SIMPLE_RADIAL_FISHEYE,
                  RADIAL, RADIAL_FISHEYE)
 PINHOLE_MODELS = (SIMPLE_PINHOLE, PINHOLE)
+NUM_MODELS = 11
 NUM_INTRINSIC_SLOTS = 8
 NUM_EXTRA_SLOTS = 4       # slots 4-7: the first four distortion params
 
@@ -106,7 +107,8 @@ def _is_single_focal(model_id, device=None):
 
 
 def _num_params(model_id, device=None) -> torch.Tensor:
-    table = torch.tensor([CAMERA_MODEL_NUM_PARAMS[m] for m in range(11)],
+    table = torch.tensor([CAMERA_MODEL_NUM_PARAMS[m]
+                          for m in range(NUM_MODELS)],
                          device=device)
     return table[torch.as_tensor(model_id, device=device).long()]
 
@@ -400,6 +402,13 @@ def cam_from_img(model_id, params: torch.Tensor, xy: torch.Tensor,
         dv = (-J[..., 1, 0] * r[..., 0] + J[..., 0, 0] * r[..., 1]) / det
         uv = uv - torch.stack([du, dv], -1)
     return uv
+
+
+# per-row model ids (N,) and params (N, 12): distort, img_from_cam and
+# cam_from_img take a model-id tensor per element already
+distort_batched = distort
+img_from_cam_batched = img_from_cam
+cam_from_img_batched = cam_from_img
 
 
 class Camera(NamedTuple):

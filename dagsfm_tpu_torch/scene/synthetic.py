@@ -1,10 +1,10 @@
 """Deterministic synthetic scenes (numpy RNG: the same seed gives the same
 scene as dagsfm_tpu/scene/synthetic.py).
 
-Port of `SyntheticSceneSpec`, `generate`, `to_matching_problem`,
-`to_scene_arrays`, `pose_errors` (and its Sim(3), `align_to_truth`) and
-`render_images` (through the scene's pinhole camera or any camera
-model).
+Port of `SyntheticSceneSpec`, `generate`, `to_reconstruction`,
+`to_matching_problem`, `to_scene_arrays`, `pose_errors` (and its Sim(3),
+`align_to_truth`) and `render_images` (through the scene's pinhole
+camera or any camera model).
 """
 
 from __future__ import annotations
@@ -50,6 +50,9 @@ class SyntheticScene:
     visible: np.ndarray    # (I, P) bool
     pixels: np.ndarray     # (I, P, 2)
     is_outlier: np.ndarray  # (I, P) bool
+
+    def look_dirs(self) -> np.ndarray:
+        return self.R[:, 2, :]   # each camera's z-axis in the world frame
 
     def centers(self) -> np.ndarray:
         return np.einsum("nij,nj->ni", self.R.transpose(0, 2, 1), -self.t)
@@ -121,6 +124,39 @@ def generate(spec: SyntheticSceneSpec) -> SyntheticScene:
     is_outlier = is_outlier & ok[None, :]
     return SyntheticScene(spec=spec, R=R, t=t, points=points, camera=camera,
                           visible=visible, pixels=pix, is_outlier=is_outlier)
+
+
+def to_reconstruction(scene: SyntheticScene,
+                      with_points: bool = True) -> Reconstruction:
+    """The ground-truth Reconstruction: every image registered, image i
+    keypoint k the k-th point it sees (in point order), each point of a
+    track of >= 2 views with its true position."""
+    rec = Reconstruction()
+    rec.add_camera(scene.camera)
+    I, P = scene.visible.shape
+    kp_index = np.full((I, P), -1, np.int64)
+    qs = rops.rotmat_to_quat(torch.as_tensor(scene.R)).numpy()
+    for i in range(I):
+        vis = np.nonzero(scene.visible[i])[0]
+        kp_index[i, vis] = np.arange(len(vis))
+        rec.add_image(ImageRecord(
+            image_id=i + 1, name=f"image{i + 1:05d}.jpg", camera_id=1,
+            qvec=qs[i], tvec=scene.t[i].copy(), xys=scene.pixels[i, vis],
+            point3D_ids=np.full(len(vis), -1, np.int64), registered=True))
+    if with_points:
+        # tracks assembled point-major from one stable sort of the
+        # visible (image, point) pairs
+        ii, pp = np.nonzero(scene.visible)
+        kps = kp_index[ii, pp]
+        order = np.argsort(pp, kind="stable")
+        ii_s, pp_s, kp_s = ii[order], pp[order], kps[order]
+        starts = np.searchsorted(pp_s, np.arange(P + 1))
+        for p in range(P):
+            a, b = starts[p], starts[p + 1]
+            if b - a >= 2:
+                rec.add_point3D(scene.points[p], list(zip(
+                    (ii_s[a:b] + 1).tolist(), kp_s[a:b].tolist())))
+    return rec
 
 
 def to_scene_arrays(scene: SyntheticScene, device):

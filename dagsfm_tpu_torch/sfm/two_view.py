@@ -39,6 +39,18 @@ def _draw_samples(generator: torch.Generator, pair_data: list,
     return out
 
 
+def estimate_two_view_batched(sample_idx, x1, x2, mask, thr):
+    """Essential RANSAC and pose recovery for a batch of pairs (the
+    reference's pair-vmapped program; its PRNG keys become the draws).
+
+    sample_idx (B, H, 5) indices below N; x1, x2 (B, N, 2) normalised
+    coordinates; mask (B, N); thr (B,) squared Sampson thresholds.
+    Returns (R (B, 3, 3), t (B, 3), num_inliers (B,), num_in_front (B,),
+    inliers (B, N), valid (B,)), tensors on the inputs' device."""
+    res, R, t, nf = tvc._e_batched(x1, x2, mask, thr, {"E": sample_idx})
+    return R, t, res.num_inliers, nf, res.inliers, res.valid
+
+
 def verify_pairs(pair_data: list, num_hyps: int = 256, seed: int = 0,
                  sample_idx: list | None = None, device=None) -> dict:
     """Verify many pairs with the essential matrix.

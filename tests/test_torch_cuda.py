@@ -1078,3 +1078,70 @@ def test_dense_reconstruct_defaults_to_the_card(cuda, tmp_path):
     assert len(fused["xyz"]) > 2000
     assert abs(np.median(fused["xyz"][:, 2]) - 5.0) < 0.05
     assert (tmp_path / "fused.ply").exists()
+
+
+def test_rig_ba_repeats_bit_for_bit_on_the_card(cuda):
+    """Rig BA (dense J scattered from its blocks, JᵀJ, one dense solve
+    per iteration) gives the same bits twice on the card and agrees with
+    the CPU to rel 1e-7."""
+    from chip_smoke import rig_config, rig_scene
+    from dagsfm_tpu_torch.scene import camera_rig as t_rig
+    from dagsfm_tpu_torch.sfm import rig_bundle_adjustment as t_rba
+    import json
+    import tempfile
+    rec, _ = rig_scene(12, 300, seed=1)
+    with tempfile.TemporaryDirectory() as d:
+        with open(d + "/rig.json", "w") as f:
+            json.dump(rig_config(), f)
+        rigs = t_rig.read_rig_config(d + "/rig.json", rec)
+    outs = []
+    for dev in (cuda, cuda, "cpu"):
+        prob, _ = t_rig.make_rig_ba_problem(rec, rigs, device=dev)
+        outs.append(t_rba.solve(prob, t_rba.RigBAOptions(max_iterations=20)))
+    for a, b, c in zip(*outs):
+        assert torch.equal(a, b)
+        c = c.numpy()
+        assert np.abs(a.cpu().numpy() - c).max() <= \
+            1e-7 * max(np.abs(c).max(), 1.0)
+    assert float(outs[0].final_cost) < 0.2 * float(outs[0].initial_cost)
+
+
+def test_generalized_pose_on_the_card_equals_the_cpu(cuda):
+    """gpnp (batched over hypotheses) and the 17-point solver (batched
+    SVDs: cuSOLVER on the card, LAPACK here) agree within 1e-9, and
+    their residuals too."""
+    from chip_smoke import _rig_ray_pairs, rig_rays, rig_scene
+    from dagsfm_tpu_torch.ops import generalized_pose as t_gp
+    _, truth = rig_scene(12, 300, seed=1)
+    X, o, d, _, _ = rig_rays(truth, 0)
+    rng = np.random.default_rng(0)
+    idx = np.stack([rng.choice(len(X), 8, replace=False) for _ in range(256)])
+    res = {}
+    for dev in (cuda, "cpu"):
+        T = (lambda a: torch.as_tensor(a[idx], device=dev))
+        M, v = t_gp.gpnp(T(X), T(o), T(d))
+        r = t_gp.gpnp_ray_residual(
+            M[:, 0], *(torch.as_tensor(a, device=dev)[None]
+                       for a in (X, o, d)))
+        res[str(dev)] = (M.cpu(), v.cpu(), r.cpu())
+    a, b = res["cuda"], res["cpu"]
+    assert torch.equal(a[1], b[1])
+    np.testing.assert_allclose(a[0].numpy(), b[0].numpy(), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(a[2].numpy(), b[2].numpy(), rtol=1e-9,
+                               atol=1e-12)
+    # windows of 17 consecutive pairs: their cameras vary, so each
+    # system has one null vector (a random 17-subset can have two)
+    q1, c1, q2, c2 = _rig_ray_pairs(truth, 0, 1)
+    pick = (np.arange(256)[:, None] + np.arange(17)) % len(q1)
+    res = {}
+    for dev in (cuda, "cpu"):
+        args = [torch.as_tensor(a[pick], device=dev) for a in (q1, c1, q2,
+                                                                 c2)]
+        M, v = t_gp.generalized_relative_pose_17pt(*args)
+        r = t_gp.gec_residual(M[:, 0], *args)
+        res[str(dev)] = (M.cpu(), v.cpu(), r.cpu())
+    a, b = res["cuda"], res["cpu"]
+    assert torch.equal(a[1], b[1])
+    np.testing.assert_allclose(a[0].numpy(), b[0].numpy(), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(a[2].numpy(), b[2].numpy(), rtol=1e-6,
+                               atol=1e-20)

@@ -59,27 +59,39 @@ def test_port_imports_without_jax_or_reference():
 
 def test_cli_runs_without_jax_or_reference():
     """`python -m dagsfm_tpu_torch` and each command's --help, under the
-    guard: argparse exits 0 after printing the usage."""
+    guard and in one process: argparse exits 0 after printing the usage,
+    and nothing of jax or the JAX package was imported."""
     head = _GUARD.split("import dagsfm_tpu_torch")[0]
-    for argv in ([], ["local_sfm_worker"], ["local_matching_worker"],
-                 ["distributed_mapper"], ["vocab_tree_builder"],
-                 ["vocab_tree_retriever"], ["spatial_matcher"],
-                 ["transitive_matcher"], ["image_undistorter"],
-                 ["model_converter"], ["poisson_mesher"],
-                 ["delaunay_mesher"]):
-        out = _run(head + (
-            "import runpy\n"
-            f"sys.argv = ['dagsfm_tpu_torch'] + {argv!r} + ['--help']\n"
-            "try:\n"
-            "    runpy.run_module('dagsfm_tpu_torch', run_name='__main__')\n"
-            "except SystemExit as e:\n"
-            "    assert e.code == 0, e.code\n"
-            "bad = [m for m in sys.modules if sys.modules[m] is not None and "
-            "(m == 'jax' or m.startswith(('jax.', 'dagsfm_tpu.')) or "
-            "m == 'dagsfm_tpu')]\n"
-            "assert not bad, bad\n"))
-        assert out.returncode == 0, out.stderr
-        assert "usage: dagsfm_tpu_torch" in out.stdout
+    argvs = [[], ["local_sfm_worker"], ["local_matching_worker"],
+             ["distributed_mapper"], ["vocab_tree_builder"],
+             ["vocab_tree_retriever"], ["spatial_matcher"],
+             ["transitive_matcher"], ["image_undistorter"],
+             ["model_converter"], ["poisson_mesher"], ["delaunay_mesher"],
+             ["mapper"], ["sfm_aligner"], ["bundle_adjuster"],
+             ["point_triangulator"], ["image_registrator"],
+             ["database_creator"], ["matches_importer"],
+             ["database_merger"], ["feature_importer"], ["model_analyzer"],
+             ["model_merger"], ["model_aligner"], ["point_filtering"],
+             ["image_deleter"], ["image_filterer"], ["synthetic_scene"],
+             ["project_generator"], ["rig_bundle_adjuster"]]
+    out = _run(head + (
+        "import contextlib, io, runpy\n"
+        f"for argv in {argvs!r}:\n"
+        "    sys.argv = ['dagsfm_tpu_torch'] + argv + ['--help']\n"
+        "    buf = io.StringIO()\n"
+        "    try:\n"
+        "        with contextlib.redirect_stdout(buf):\n"
+        "            runpy.run_module('dagsfm_tpu_torch', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (argv, e.code)\n"
+        "    assert 'usage: dagsfm_tpu_torch' in buf.getvalue(), argv\n"
+        "    print('HELP', *argv)\n"
+        "bad = [m for m in sys.modules if sys.modules[m] is not None and "
+        "(m == 'jax' or m.startswith(('jax.', 'dagsfm_tpu.')) or "
+        "m == 'dagsfm_tpu')]\n"
+        "assert not bad, bad\n"))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.count("HELP") == len(argvs)
 
 
 def test_guard_refuses_the_reference():

@@ -125,6 +125,36 @@ any error:
      hypotheses of 8) on snapshot 0's rays with a quarter of them
      outliers, and the 17-point solver on 17 exact ray pairs and on a
      batch of 1,024 (the batched SVD timed); no kernel launches.
+  16. the photos path, right after the pixel path, on its 12 rendered
+     images quantised to 8 bits (as a PNG round trip leaves them), each
+     with the camera image_reader.camera_from_exif builds from an
+     explicit SIMPLE_PINHOLE calibration at the true focal: the bodies
+     of feature_extractor and automatic_reconstructor (exhaustive
+     pairs, 1 K1 launch, mapping; the pixel path's gate, and
+     feature_extractor's keypoint rows equal to automatic_reconstructor's
+     database's), color_extractor (every point coloured) and
+     image_rectifier on one registered pair (its shared points on one
+     row); which image decoders the machine has is printed, and where
+     it has PIL `python -m dagsfm_tpu_torch automatic_reconstructor`
+     runs as a process on the images as PNGs, alone after the last path
+     (the same gate);
+  17. the orientation path: model_orientation_aligner's body with
+     IMAGE-ORIENTATION on the photos path's model (gravity onto +y
+     within 1e-9, the ATE unchanged within 1e-9) and MANHATTAN-WORLD on
+     its images and on line_images of the same model (lines through each
+     camera's vanishing points), each against the same on the CPU (the
+     frames within 1e-4 rad; each accumulator within 1e-5 of its largest
+     bin plus the weight of the votes rounding may move, and the peak
+     bins the same but where those votes decide, `_card_against_cpu`;
+     on the lines at most 8 bins off, the same bins, at least 4 lines
+     per image and a down axis within 8 degrees of +y);
+  18. the solvers path, right after the distributed path:
+     estimate_rotations_lagrange_dual (the block SDP, 50 sweeps) and
+     estimate_rotations_nonlinear on its final view graph, each within
+     0.1 degree of the controller's L1-IRLS rotations; l1_regression,
+     constrained_l1 and box_qp on planted problems; robust_estimate with
+     each sampler and both scorings on a planted line with a quarter
+     outliers.
 Every kernel launch counter is zeroed just before each path and read
 just after it. It prints a `kernels` JSON line (K1's launches are the
 distorted path's), the card line and, last, the result.
@@ -205,6 +235,8 @@ DENSE_PEAK_GIB = 40.0
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+SOLVER_SWEEPS = 50       # the solvers path: estimate_rotations_lagrange_dual's
+#                          default sweeps of the block SDP
 RIG_SNAPSHOTS = 50       # the rig path: a four-camera rig (ETH3D's rig
 RIG_POINTS = 1500        # datasets use four cameras) on a ring of 50
 RIG_TRACK = (8, 16)      # snapshots; each point seen by 8-16 of them
@@ -3011,6 +3043,614 @@ def _rig_ray_pairs(truth: dict, s1: int, s2: int) -> tuple:
     return tuple(np.stack(x) for x in (q1, c1, q2, c2))
 
 
+def decoders() -> dict:
+    """Which image decoders this machine has (looked up, never used to
+    read: the photo commands read with PIL alone)."""
+    import importlib.util
+    out = {}
+    for name, mod in (("PIL", "PIL"), ("imageio", "imageio"),
+                      ("cv2", "cv2"), ("torchvision.io", "torchvision")):
+        out[name] = importlib.util.find_spec(mod) is not None
+    if out["torchvision.io"]:
+        try:
+            import torchvision.io  # noqa: F401
+        except Exception:  # noqa: BLE001 — a broken install is "absent"
+            out["torchvision.io"] = False
+    return out
+
+
+def photos_path(dev, card: str, images: dict, sc, work: str) -> tuple:
+    """The photo commands' bodies on the card, on the pixel path's
+    rendered images quantised to 8 bits (as a PNG round trip leaves
+    them), each with the camera `camera_from_exif` builds from an
+    explicit calibration (SIMPLE_PINHOLE at the true focal, as the pixel
+    path's cameras): `feature_extractor` into one database, then
+    `automatic_reconstructor` (exhaustive extraction, matching and
+    verification into its own database, mapping, the model written),
+    gated as the pixel path (all registered, ATE < 0.1, mean rotation
+    error < 1 degree) and on feature_extractor's keypoint rows equal to
+    automatic_reconstructor's; `color_extractor` on the model (every
+    point coloured); `image_rectifier` on one registered pair (the
+    pair's shared points on one row: median |dy| < 1 px). Prints which
+    decoders the machine has; with PIL, `automatic_reconstructor` also
+    runs as a process on PNGs (`photos_process`, after the last path).
+    Returns (launch counts, the model, the grey images by image
+    id, what the process needs or None)."""
+    import os
+
+    from dagsfm_tpu_torch.features import sift
+    from dagsfm_tpu_torch.ops import rotations as rops
+    from dagsfm_tpu_torch.pipeline import cli
+    from dagsfm_tpu_torch.scene import io as scene_io
+    from dagsfm_tpu_torch.scene import undistortion
+    from dagsfm_tpu_torch.scene.image_reader import (ImageReaderOptions,
+                                                     camera_from_exif)
+
+    have = decoders()
+    ids = sorted(images)
+    H, W = images[ids[0]].shape
+    f = float(sc.camera.params[0])
+    print(f"== photos path: the photo commands' bodies on the pixel path's "
+          f"{len(ids)} images of {W} x {H} at 8 bits; decoders on this "
+          f"machine: {have}", flush=True)
+    photos = {i: (np.round(np.clip(images[i], 0, 1) * 255).astype(np.uint8)
+                  .astype(np.float32) / 255.0) for i in ids}
+    opts = ImageReaderOptions(camera_model="SIMPLE_PINHOLE",
+                              camera_params=f"{f!r},{W / 2.0!r},{H / 2.0!r}")
+    cams = {i: camera_from_exif(i, W, H, None, opts) for i in ids}
+    d = (lambda *a: os.path.join(work, "photos", *a))
+    os.makedirs(d(), exist_ok=True)
+    n_pairs = len(ids) * (len(ids) - 1) // 2
+    secs = {}
+
+    torch.cuda.synchronize()
+    _zero_counts()                                    # counts zeroed
+    t0 = time.perf_counter()
+    cli.feature_extractor(photos, cams, d("features.db"), sift.SiftOptions(),
+                          device=dev)
+    torch.cuda.synchronize()
+    secs["feature_extractor"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec, out, fp = cli.automatic_reconstructor(photos, cams, d("ws"),
+                                               device=dev)
+    torch.cuda.synchronize()
+    secs["automatic_reconstructor"] = time.perf_counter() - t0
+    counts = _counts()                                # counts read
+    err, _ = _write_and_gate(rec, sc, len(ids), 0.1, 1.0)
+    with scene_io.ColmapDatabase(d("features.db")) as a, \
+            scene_io.ColmapDatabase(d("ws", "database.db")) as b:
+        same_rows = all(np.array_equal(a.read_keypoints(i),
+                                       b.read_keypoints(i)) for i in ids)
+        rows = sum(len(a.read_keypoints(i)) for i in ids)
+
+    grey = {i: photos[i] for i in ids}
+    by_name = {rec.images[i].name: np.repeat(photos[i][:, :, None], 3, 2)
+               for i in ids}
+    t0 = time.perf_counter()
+    colored = cli.color_extractor(rec, by_name)
+    secs["color_extractor"] = time.perf_counter() - t0
+    i1, i2 = [i for i in ids if rec.images[i].registered][:2]
+    im1, im2 = rec.images[i1], rec.images[i2]
+    t0 = time.perf_counter()
+    n_rect = cli.image_rectifier(rec, by_name, [(im1.name, im2.name)],
+                                 d("rect"), device=dev)
+    torch.cuda.synchronize()
+    secs["image_rectifier"] = time.perf_counter() - t0
+    stem = f"{os.path.splitext(im1.name)[0]}-{os.path.splitext(im2.name)[0]}"
+    npz = np.load(d("rect", stem + ".npz"))
+    R1, R2 = rops.quat_to_rotmat_np(im1.qvec), rops.quat_to_rotmat_np(im2.qvec)
+    R12 = R2 @ R1.T
+    H1, H2, _ = undistortion.rectify_stereo_cameras(
+        *(undistortion.undistorted_camera(rec.cameras[im.camera_id])
+          for im in (im1, im2)),
+        rops.rotmat_to_quat_np(R12), im2.tvec - R12 @ im1.tvec)
+    shared = [(k1, k2) for k1, p in enumerate(im1.point3D_ids) if p >= 0
+              for k2 in np.nonzero(im2.point3D_ids == p)[0]]
+    x1 = np.c_[im1.xys[[a for a, _ in shared]], np.ones(len(shared))] @ H1.T
+    x2 = np.c_[im2.xys[[b for _, b in shared]], np.ones(len(shared))] @ H2.T
+    dy = np.abs(x1[:, 1] / x1[:, 2] - x2[:, 1] / x2[:, 2])
+    print(f"  on {card}: feature_extractor {secs['feature_extractor']:.3f} s "
+          f"({rows} keypoint rows, automatic_reconstructor's the same: "
+          f"{same_rows}); automatic_reconstructor "
+          f"{secs['automatic_reconstructor']:.3f} s ({n_pairs} pairs, "
+          f"{len(fp.two_view)} verified, K1 launches "
+          f"{counts['fused_matcher']}); color_extractor "
+          f"{secs['color_extractor']:.3f} s ({colored}/"
+          f"{rec.num_points3D()} points coloured); image_rectifier "
+          f"{secs['image_rectifier']:.3f} s (pair {i1}-{i2}: {len(shared)} "
+          f"shared points, median |dy| {np.median(dy):.4f} px, rectified "
+          f"{npz['left'].shape})", flush=True)
+    if not same_rows:
+        raise AssertionError("photos path: feature_extractor's keypoint "
+                             "rows differ from automatic_reconstructor's")
+    if colored != rec.num_points3D() or colored == 0:
+        raise AssertionError(f"photos path: {colored} of "
+                             f"{rec.num_points3D()} points coloured")
+    if not (n_rect == 1 and len(shared) >= 8 and np.median(dy) < 1.0
+            and all(np.isfinite(npz[k]).all() for k in ("left", "right", "Q"))
+            and np.ptp(npz["left"]) > 0):
+        raise AssertionError("photos path: image_rectifier's pair is not "
+                             "rectified")
+    if counts["fused_matcher"] != math.ceil(n_pairs / MATCH_BATCH):
+        raise AssertionError(f"photos path: K1 launches {counts}")
+    process = None
+    if have["PIL"]:
+        process = (photos, f, d)
+        print("  PIL is here: automatic_reconstructor runs as a process on "
+              "the photos as PNGs after the last path",
+              flush=True)
+    else:
+        print("  no PIL on this machine: the photo commands exit here as "
+              "the JAX package's do; they run as processes in the CPU "
+              "tests only", flush=True)
+    return counts, rec, grey, process
+
+
+def photos_process(card: str, photos: dict, f: float, d, sc) -> None:
+    """Where PIL is: the photos written as PNGs, then `python -m
+    dagsfm_tpu_torch automatic_reconstructor` on them as a process of
+    its own, after the last path (so that it shares the card with no
+    timed path), its wall time printed, and its model held to the pixel
+    path's limits (all registered, ATE < 0.1, mean rotation error < 1
+    degree)."""
+    import os
+
+    from PIL import Image
+
+    from dagsfm_tpu_torch.scene import io as scene_io
+    os.makedirs(d("png"), exist_ok=True)
+    for i, img in photos.items():
+        Image.fromarray(np.round(img * 255).astype(np.uint8)).save(
+            d("png", f"image{i:05d}.png"))
+    H, W = next(iter(photos.values())).shape
+    t0 = time.perf_counter()
+    p = _start_cli(["automatic_reconstructor", "--image_path", d("png"),
+                    "--workspace_path", d("ws_process"), "--camera_model",
+                    "SIMPLE_PINHOLE", "--camera_params",
+                    f"{f!r},{W / 2.0!r},{H / 2.0!r}"], d("process.log"))
+    out = _finish_cli(p, 600, "automatic_reconstructor")
+    print(f"== automatic_reconstructor process on the photos path's PNGs, "
+          f"alone after the last path: {time.perf_counter() - t0:.3f} s "
+          f"wall on {card}; its line: {out.strip().splitlines()[-1]}",
+          flush=True)
+    _write_and_gate(scene_io.read_model_bin(
+        os.path.join(d("ws_process"), "sparse", "0")), sc, len(photos),
+        0.1, 1.0)
+
+
+def line_images(rec, W: int | None = None, H: int | None = None,
+                lines: int = 6, seed: int = 0) -> dict:
+    """Grey images (float32, image id -> (H, W)) of a Manhattan scene's
+    edges as each registered image sees them: anti-aliased lines
+    (Gaussian profile, sigma 0.8 px) through the vanishing points of the
+    world's x and y axes, on a flat background. W and H default to the
+    camera's; the principal point is the image centre."""
+    from dagsfm_tpu_torch.ops import rotations as rops
+    rng = np.random.default_rng(seed)
+    out = {}
+    for iid in rec.reg_image_ids:
+        im = rec.images[iid]
+        cam = rec.cameras[im.camera_id]
+        w, h = W or cam.width, H or cam.height
+        ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+        K = np.array([[cam.focal(), 0, w / 2], [0, cam.focal(), h / 2],
+                      [0, 0, 1.0]])
+        R = rops.quat_to_rotmat_np(im.qvec)
+        img = np.full((h, w), 0.2)
+        for axis in (0, 1):
+            vp = K @ R[:, axis]
+            for _ in range(lines):
+                p = np.array([rng.uniform(10, w - 10),
+                              rng.uniform(10, h - 10), 1.0])
+                ln = np.cross(vp, p)
+                ln /= np.linalg.norm(ln[:2])
+                d = ln[0] * xs + ln[1] * ys + ln[2]
+                img += rng.uniform(0.3, 0.6) * np.exp(-0.5 * (d / 0.8) ** 2)
+        out[iid] = np.clip(img, 0, 1).astype(np.float32)
+    return out
+
+
+def peak_bins(lines: tuple, rho_max: float, num_theta: int = 60,
+              num_rho: int = 128) -> list:
+    """The (theta, rho) accumulator bins of detect_lines' lines, in its
+    order."""
+    _, _, theta = lines
+    rho = -lines[0][:, 2]
+    t = np.round(theta / np.pi * num_theta - 0.5).astype(int)
+    r = np.round((rho + rho_max) / (2 * rho_max) * num_rho - 0.5)
+    return list(zip(t.tolist(), r.astype(int).tolist()))
+
+
+def _captured_accumulators(cf, run) -> list:
+    """run() with every Hough accumulator it computes recorded, in call
+    order, as (acc on the host, rho_max, the image on the host): the
+    frames' own accumulators, so the comparison computes none again."""
+    inner, seen = cf._hough_accumulate, []
+
+    def record(img, *a, **k):
+        acc, rho_max = inner(img, *a, **k)
+        seen.append((acc.cpu().numpy(), rho_max, img.cpu().numpy()))
+        return acc, rho_max
+
+    cf._hough_accumulate = record
+    try:
+        run()
+    finally:
+        cf._hough_accumulate = inner
+    return seen
+
+
+HOUGH_EDGE = 1e-4        # bin units: a vote this close to a bin's edge
+HOUGH_MAG_EDGE = 1e-6    # rel: |grad| this close to the vote threshold
+
+
+def rounding_slack(img, num_theta: int = 60, num_rho: int = 128) -> tuple:
+    """The Hough votes that rounding decides and where they may land.
+    From the port's gradients on the CPU (the same bits as the card's and
+    the JAX package's, `coordinate_frame._sobel`), in float64: a voter
+    within HOUGH_EDGE of a theta or a rho bin's edge, or with |grad|
+    within HOUGH_MAG_EDGE of the vote threshold. atan2, cos and sin round
+    differently from one library to the next, by a few ulp (about 5e-6
+    of a bin), so such a vote lands in one of the bins its angle and rho
+    reach within HOUGH_EDGE (theta wraps at pi, where rho changes sign),
+    or nowhere. Returns (the number of such votes, per (theta, rho) bin
+    the weight of those that may land in it): two accumulators of the
+    image differ at a bin by rounding by at most that weight, and by the
+    float32 sum's own rounding."""
+    from dagsfm_tpu_torch.estimation import coordinate_frame as cf
+    x = torch.as_tensor(np.asarray(img, np.float32))
+    h, w = x.shape
+    gx, gy = cf._sobel(x)
+    mag = torch.sqrt(gx * gx + gy * gy).reshape(-1)
+    thr = float(torch.quantile(mag, 0.9))
+    mag = mag.double().numpy()
+    gx, gy = (g.double().numpy().reshape(-1) for g in (gx, gy))
+    ys, xs = (v.reshape(-1).astype(np.float64) for v in np.mgrid[0:h, 0:w])
+    rho_max = float(np.sqrt(float(h * h + w * w)))
+    theta = np.mod(np.arctan2(gy, gx), np.pi)
+    rho = xs * np.cos(theta) + ys * np.sin(theta)
+
+    def bins(theta, rho, step):
+        return (theta / np.pi * num_theta + step[0],
+                (rho + rho_max) / (2 * rho_max) * num_rho + step[1])
+
+    t, r = bins(theta, rho, (0, 0))
+    near = ((np.abs(t - np.round(t)) < HOUGH_EDGE)
+            | (np.abs(r - np.round(r)) < HOUGH_EDGE)
+            | (np.abs(mag - thr) <= HOUGH_MAG_EDGE * thr))
+    sel = near & (mag > thr * (1 - HOUGH_MAG_EDGE))      # may vote
+    theta, rho = theta[sel], rho[sel]
+    keys = []
+    for dt in (-HOUGH_EDGE, 0.0, HOUGH_EDGE):
+        for dr in (-HOUGH_EDGE, 0.0, HOUGH_EDGE):
+            t, r = bins(theta, rho, (dt, dr))
+            # past either end theta wraps and rho changes sign
+            wrap = (t < 0) | (t >= num_theta)
+            t = np.where(wrap, np.mod(t, num_theta), t)
+            r = np.where(wrap, num_rho - r, r)
+            keys.append(np.clip(t.astype(np.int64), 0, num_theta - 1)
+                        * num_rho
+                        + np.clip(r.astype(np.int64), 0, num_rho - 1))
+    keys = np.sort(np.stack(keys, 1), 1)                 # (N, 9)
+    first = np.ones(keys.shape, bool)
+    first[:, 1:] = keys[:, 1:] != keys[:, :-1]           # each bin once
+    slack = np.zeros(num_theta * num_rho)
+    np.add.at(slack, keys[first],
+              np.broadcast_to(mag[sel][:, None], keys.shape)[first])
+    return int(sel.sum()), slack.reshape(num_theta, num_rho)
+
+
+def _card_against_cpu(cf, on_card: tuple, on_cpu: tuple, opts) -> tuple:
+    """One image's Hough accumulator and peaks on the card against the
+    CPU's (each (acc, rho_max, image) from `_captured_accumulators`; the
+    images equal). Each bin within 1e-5 of the largest (tol) plus the
+    weight of the votes rounding may move into it (`rounding_slack`);
+    each bin in one top K and not the other moved there by rounding: its
+    support,
+    on either device, within 2 tol and the two bins' slack of the
+    smaller K-th support, of the least support a line needs, or of a
+    3 x 3 neighbour's (both axes wrap, as in the non-max suppression).
+    Returns (the votes rounding decides, the bins off by more than tol,
+    the bins in one top K only, the card's line count, whether all
+    held)."""
+    if not np.array_equal(on_card[2], on_cpu[2]):
+        raise AssertionError("orientation path: the card saw other pixels")
+    n_edge, slack = rounding_slack(on_cpu[2], opts.num_theta_bins,
+                                   opts.num_rho_bins)
+    out = [(acc, cf._lines_from_accumulator(acc, rho_max, opts), rho_max)
+           for acc, rho_max, _ in (on_card, on_cpu)]
+    (a, la, rm), (b, lb, _) = out
+    tol = 1e-5 * float(np.abs(b).max())
+    gap = np.abs(a - b)
+    bounded = bool((gap <= tol + slack).all())
+    T, R = a.shape
+
+    def bins(lines) -> list:
+        return peak_bins(lines, rm, T, R)
+
+    moved = set(bins(la)) ^ set(bins(lb))
+    # where a bin enters one device's lines: its K-th support, or the
+    # least support a line needs while it has fewer than K
+    cuts = [(float(x[1][-1]), slack[bins(x)[-1]])
+            if len(x[1]) == opts.num_lines else (opts.min_line_support, 0.0)
+            for x in (la, lb)]
+
+    def decided(k) -> bool:
+        t, r = k
+        near = [((t + dt) % T, (r + dr) % R) for dt in (-1, 0, 1)
+                for dr in (-1, 0, 1) if dt or dr]
+        return any(abs(x[k] - c) <= 2 * tol + slack[k] + s_c
+                   for x in (a, b) for c, s_c in cuts) or any(
+            abs(x[k] - x[n]) <= 2 * tol + slack[k] + slack[n]
+            for x in (a, b) for n in near)
+
+    bad = [(k, float(a[k]), float(b[k]), float(slack[k])) for k in moved
+           if not decided(k)]
+    if bad or not bounded:
+        worst = np.unravel_index(np.argmax(gap - slack), gap.shape)
+        print(f"    apart from the rounding rule: peaks {bad}, cut-offs "
+              f"{[c for c, _ in cuts]}; largest gap over its slack at "
+              f"{worst}: {gap[worst]:.6g} against {tol:.3g} + "
+              f"{slack[worst]:.6g}", flush=True)
+    return (n_edge, int((gap > tol).sum()), len(moved), len(la[0]),
+            bounded and not bad)
+
+
+def orientation_path(dev, card: str, rec, grey: dict, sc) -> dict:
+    """model_orientation_aligner's body on the card: IMAGE-ORIENTATION
+    on the photos path's model (the consensus down axis mapped onto
+    +y within 1e-9; a rigid motion: ATE against the truth unchanged
+    within 1e-9); MANHATTAN-WORLD on its images, and on `line_images`
+    of the same model (lines through each camera's vanishing points of
+    the world's axes, 1024 x 768), each then on the CPU from the same
+    images (`_card_against_cpu`): each image's accumulator within 1e-5
+    of its largest bin plus the weight of the votes that rounding may
+    move (`rounding_slack`), each peak bin the CPU's but where such votes
+    move it across the top K's cut-off or the non-max suppression, and
+    the frames within 1e-4 rad; on the images of lines besides at most 8
+    bins per image off by more than 1e-5 of the largest (as the card
+    test), the same peak bins, at least 4 lines per image and the
+    frame's down axis within 8 degrees of the world's y. Returns the
+    launch counts (none expected)."""
+    import copy
+
+    from dagsfm_tpu_torch.estimation import coordinate_frame as cf
+    from dagsfm_tpu_torch.pipeline import cli
+    from dagsfm_tpu_torch.scene import synthetic
+
+    t_path = time.perf_counter()
+    print(f"== orientation path: model_orientation_aligner on the photos "
+          f"path's model ({rec.num_reg_images()} images) and images",
+          flush=True)
+    torch.cuda.synchronize()
+    _zero_counts()                                    # counts zeroed
+    before = synthetic.pose_errors(rec, sc)
+    aligned = copy.deepcopy(rec)
+    t0 = time.perf_counter()
+    tform, _ = cli.model_orientation_aligner(aligned, "image-orientation")
+    t_io = time.perf_counter() - t0
+    g = cf.estimate_gravity_vector_from_image_orientation(aligned)
+    g_err = float(np.linalg.norm(g / np.linalg.norm(g) - [0.0, 1.0, 0.0]))
+    after = synthetic.pose_errors(aligned, sc)
+    ate_gap = abs(after["ate"] - before["ate"])
+
+    secs, frames, peaks = {}, {}, {}
+    opts = cf.ManhattanOptions()
+    for kind, imgs in (("photos", grey), ("lines", line_images(rec))):
+        manhattan, got = copy.deepcopy(rec), {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = _captured_accumulators(cf, lambda: got.update(
+            frame=cli.model_orientation_aligner(
+                manhattan, "manhattan-world", imgs, device=dev)[1]))
+        secs[kind] = time.perf_counter() - t0
+        frame = got["frame"]
+        on_cpu = _captured_accumulators(cf, lambda: got.update(
+            cpu=cf.estimate_manhattan_world_frame(rec, imgs, device="cpu")))
+        frame_cpu = got["cpu"]
+        if not len(on_card) == len(on_cpu) == len(rec.reg_image_ids):
+            raise AssertionError("orientation path: an image went unseen")
+        frames[kind] = (frame, _frame_angle(frame, frame_cpu))
+        peaks[kind] = [_card_against_cpu(cf, a, b, opts)
+                       for a, b in zip(on_card, on_cpu)]
+    counts = _counts()                                # counts read
+    print(f"  on {card}: orientation path {time.perf_counter() - t_path:.3f}"
+          f" s; IMAGE-ORIENTATION {t_io:.3f} s, gravity onto +y within "
+          f"{g_err:.3e}, ATE {before['ate']:.9f} -> {after['ate']:.9f}",
+          flush=True)
+    for kind in frames:
+        edge, off, moved, lines, ok = zip(*peaks[kind])
+        print(f"  on {card}: MANHATTAN-WORLD on the {kind} {secs[kind]:.3f} "
+              f"s; per image: lines {list(lines)}, votes rounding decides "
+              f"{list(edge)}, accumulator bins off by more than 1e-5 of the "
+              f"largest {list(off)}, peak bins not the CPU's {list(moved)}; "
+              f"all within the rounding rule: {all(ok)}; frame "
+              f"{frames[kind][0].round(6).tolist()}, card against CPU "
+              f"{frames[kind][1]:.3e} rad", flush=True)
+    if not (g_err < 1e-9 and ate_gap < 1e-9):
+        raise AssertionError(f"orientation path: gravity {g_err}, ATE gap "
+                             f"{ate_gap}")
+    if not all(p[-1] for kind in peaks for p in peaks[kind]) or not all(
+            gap < 1e-4 for _, gap in frames.values()):
+        raise AssertionError("orientation path: the card's Manhattan frame "
+                             "is not the CPU's")
+    _, off, moved, lines, _ = zip(*peaks["lines"])
+    down = frames["lines"][0][:, 1]
+    if max(off) > 8 or any(moved) or min(lines) < 4 \
+            or abs(down @ [0.0, 1.0, 0.0]) < 0.99:
+        raise AssertionError("orientation path: no Manhattan frame from the "
+                             "images of lines")
+    return counts
+
+
+def _frame_angle(a: np.ndarray, b: np.ndarray) -> float:
+    """The largest angle in rad between the frames' matching axes (an
+    axis left empty must be empty in both)."""
+    worst = 0.0
+    for k in range(3):
+        na, nb = np.linalg.norm(a[:, k]), np.linalg.norm(b[:, k])
+        if (na == 0) != (nb == 0):
+            return math.inf
+        if na:
+            c = float(np.clip(a[:, k] @ b[:, k] / (na * nb), -1, 1))
+            worst = max(worst, math.acos(c))
+    return worst
+
+
+def solvers_path(dev, card: str, dist_state: dict) -> dict:
+    """The solvers on the card. Rotation averaging on the distributed
+    path's final view graph (the turned edges already dropped):
+    estimate_rotations_lagrange_dual (the block SDP, SOLVER_SWEEPS sweeps
+    of one update per image, timed) and estimate_rotations_nonlinear,
+    each within 0.1 degree of the controller's L1-IRLS rotations; the
+    SDP's rank-3 residual printed. Then l1_regression,
+    constrained_l1 and box_qp on planted problems (the planted solution
+    recovered), and robust_estimate with each sampler and both scorings
+    on a planted line with a quarter outliers (the line and its inliers
+    found). Returns the launch counts (none expected)."""
+    from dagsfm_tpu_torch.estimation import lagrange_dual as ld
+    from dagsfm_tpu_torch.ops import ransac_variants as rv
+
+    ctrl = dist_state["ctrl"]
+    vg = ctrl.view_graph
+    ids = sorted(vg.nodes)
+    print(f"== solvers path: SDP and nonlinear rotation averaging on the "
+          f"distributed path's final view graph ({len(ids)} images, "
+          f"{vg.num_edges()} edges), ADMM and the RANSAC variants on "
+          f"planted problems", flush=True)
+    torch.cuda.synchronize()
+    _zero_counts()                                    # counts zeroed
+    t_path = time.perf_counter()
+    index = {v: k for k, v in enumerate(ids)}
+    edges = np.array([(index[i], index[j]) for (i, j) in vg.edges])
+    rels = np.stack([e.rotation for e in vg.edges.values()])
+    R_l1 = np.stack([ctrl.global_rotations[v] for v in ids])
+    R_l1 = np.einsum("nij,kj->nik", R_l1, R_l1[0])
+    t0 = time.perf_counter()
+    R_sdp, cert = ld.estimate_rotations_lagrange_dual(
+        len(ids), edges, rels, sweeps=SOLVER_SWEEPS, device=dev)
+    t_sdp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    R_nl = ld.estimate_rotations_nonlinear(len(ids), edges, rels,
+                                           device=dev)
+    torch.cuda.synchronize()
+    t_nl = time.perf_counter() - t0
+    gap_sdp = max(_angle_deg(a, b) for a, b in zip(R_sdp, R_l1))
+    gap_nl = max(_angle_deg(a, b) for a, b in zip(R_nl, R_l1))
+    print(f"  on {card}: SDP {SOLVER_SWEEPS} sweeps x {len(ids)} block "
+          f"updates {t_sdp:.3f} s, rank-3 residual {cert:.6g}, max gap to "
+          f"L1-IRLS {gap_sdp:.6f} deg; nonlinear {t_nl:.3f} s, max gap "
+          f"{gap_nl:.6f} deg", flush=True)
+    if not (gap_sdp < 0.1 and gap_nl < 0.1 and np.isfinite(cert)):
+        raise AssertionError("solvers path: SDP or nonlinear rotations off "
+                             "the L1-IRLS ones")
+    _admm_step(dev, card)
+    _ransac_variants_step(dev, card, rv)
+    print(f"  on {card}: solvers path {time.perf_counter() - t_path:.3f} s",
+          flush=True)
+    return _counts()                                  # counts read
+
+
+def _admm_step(dev, card: str) -> None:
+    """l1_regression, constrained_l1 and box_qp on planted problems."""
+    from dagsfm_tpu_torch.solvers import admm
+    rng = np.random.default_rng(12)
+    T = (lambda a: torch.as_tensor(a, device=dev))
+    N, M = 50, 2000
+    x_true = rng.normal(0, 1, N)
+    A = rng.normal(0, 1, (M, N))
+    b = A @ x_true
+    out = rng.random(M) < 0.2
+    b[out] += rng.uniform(5, 10, out.sum()) * rng.choice([-1, 1], out.sum())
+    opts = admm.ADMMOptions(max_iterations=300)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, primal, dual = admm.l1_regression(T(A), T(b), opts)
+    x = x.cpu().numpy()
+    t_l1 = time.perf_counter() - t0
+    x_ls = np.linalg.lstsq(A, b, rcond=None)[0]
+    xc_true = np.abs(rng.normal(0, 1, N)) + 0.5
+    bc = A @ xc_true
+    t0 = time.perf_counter()
+    xc = admm.constrained_l1(T(A), T(bc), T(np.eye(N)), T(np.full(N, 0.5)),
+                             opts).cpu().numpy()
+    t_c = time.perf_counter() - t0
+    NQ = 15                  # tests/test_solvers.py's box QP
+    Q = rng.normal(0, 1, (NQ, NQ))
+    P = Q.T @ Q + np.eye(NQ)
+    x_unc = rng.normal(0, 2, NQ)
+    q = -P @ x_unc
+    t0 = time.perf_counter()
+    xq = admm.box_qp(T(P), T(q), T(np.full(NQ, -1.0)), T(np.full(NQ, 1.0)),
+                     admm.ADMMOptions(max_iterations=400)).cpu().numpy()
+    t_q = time.perf_counter() - t0
+    g = P @ xq + q
+    inside = (xq > -1 + 1e-3) & (xq < 1 - 1e-3)
+    kkt = float(np.abs(g[inside]).max()) if inside.any() else 0.0
+    # at a bound the gradient points out of the box (or is ~0)
+    sign_ok = bool(np.all(g[xq <= -1 + 1e-3] > -0.05)
+                   and np.all(g[xq >= 1 - 1e-3] < 0.05))
+    print(f"  on {card}: l1_regression {M} x {N}, 20 % outliers, 300 "
+          f"iterations {t_l1:.3f} s, error {np.abs(x - x_true).max():.2e} "
+          f"(least squares {np.abs(x_ls - x_true).max():.2e}), residuals "
+          f"{float(primal):.2e} / {float(dual):.2e}; constrained_l1 "
+          f"{t_c:.3f} s, error {np.abs(xc - xc_true).max():.2e}; box_qp "
+          f"{NQ} variables {t_q:.3f} s, KKT inside {kkt:.2e}, "
+          f"{int((~inside).sum())} at a bound", flush=True)
+    if not (np.abs(x - x_true).max() < 1e-2 and np.abs(xc - xc_true).max()
+            < 1e-2 and (xc >= 0.5 - 1e-6).all() and kkt < 0.05 and sign_ok
+            and (np.abs(xq) <= 1.0).all()):
+        raise AssertionError("solvers path: an ADMM solve missed its "
+                             "planted solution")
+
+
+def _ransac_variants_step(dev, card: str, rv) -> None:
+    """robust_estimate with each sampler and both scorings on y = 2x + 1
+    with a quarter outliers (exhaustive on 16 points)."""
+    def solver(xs, ys):
+        a, b = ys[1] - ys[0], xs[0] - xs[1]
+        c = -(a * xs[0] + b * ys[0])
+        n = torch.sqrt(a * a + b * b)
+        ok = n > 1e-9
+        n = torch.clamp(n, min=1e-9)
+        return torch.stack([a / n, b / n, c / n])[None], ok[None]
+
+    def residual(m, xs, ys):
+        return (m[0] * xs + m[1] * ys + m[2]) ** 2
+
+    worst, t0 = [], time.perf_counter()
+    for sampler in ("uniform", "prosac", "weighted", "exhaustive"):
+        for scoring in ("msac", "lmeds"):
+            n = 16 if sampler == "exhaustive" else 1000
+            rng = np.random.default_rng(len(worst))
+            x = rng.uniform(-5, 5, n)
+            y = 2 * x + 1 + rng.normal(0, 0.01, n)
+            out = rng.choice(n, n // 4, replace=False)
+            y[out] += rng.uniform(2, 10, n // 4) * rng.choice([-1, 1], n // 4)
+            inl = np.ones(n, bool)
+            inl[out] = False
+            quality = inl + rng.uniform(0, 0.3, n)
+            res = rv.robust_estimate(
+                solver, residual, (torch.as_tensor(x, device=dev),
+                                   torch.as_tensor(y, device=dev)),
+                torch.ones(n, dtype=torch.bool, device=dev), sample_size=2,
+                threshold=0.01 if scoring == "msac" else 0.0,
+                num_hypotheses=512, sampler=sampler, scoring=scoring,
+                quality=torch.as_tensor(quality, device=dev),
+                generator=torch.Generator(device=dev).manual_seed(7))
+            m = res.model.cpu().numpy()
+            slope, icpt = m[0] / -m[1], m[2] / -m[1]
+            found = res.inliers.cpu().numpy()[inl].mean()
+            worst.append(max(abs(slope - 2), abs(icpt - 1), 1 - found))
+    torch.cuda.synchronize()
+    print(f"  on {card}: robust_estimate, 4 samplers x 2 scorings, "
+          f"{time.perf_counter() - t0:.3f} s; worst of |slope - 2|, "
+          f"|intercept - 1|, inliers missed: {max(worst):.4f}", flush=True)
+    if max(worst) >= 0.05:
+        raise AssertionError(f"solvers path: robust_estimate missed the "
+                             f"planted line ({worst})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--num-images", type=int, default=PLANTED_IMAGES,
@@ -3057,44 +3697,82 @@ def main() -> int:
 
 def _run(args, dev, card: str, mk, tm, t_start: float, work: str) -> int:
     """main()'s phases after the build; `work` outlives the database
-    path for the commands path and the mapper process."""
+    path for the commands path and the mapper process. Prints each
+    phase's seconds on the host clock before the kernels' line."""
+    secs, last = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        secs[name] = round(now - last[0], 3)
+        last[0] = now
+
     k1 = kernel_phase(mk, dev, card)
     k2, k4, k3 = top2_phase(tm, dev, card)
+    lap("kernel phases")
     tool = tool_path(card)
+    lap("tool")
     if args.max_features != 8192:
         print(f"== pixel and distorted paths cut to max_num_features "
               f"{args.max_features} (default 8192)", flush=True)
     print(f"== pixel path cut to {PIXEL_IMAGES} images (30 until the "
           "commands and rig paths joined, 50 until the parallel path did, "
           "100 before the distorted path)", flush=True)
-    pixel, *_ = pixel_path(dev, card, PIXEL_IMAGES, args.max_features)
+    pixel, _, _, px_images, px_sc = pixel_path(dev, card, PIXEL_IMAGES,
+                                               args.max_features)
+    lap("pixel")
+    photos, photo_rec, photo_grey, photo_proc = photos_path(
+        dev, card, px_images, px_sc, work)
+    lap("photos")
+    orientation = orientation_path(dev, card, photo_rec, photo_grey, px_sc)
+    lap("orientation")
+    del px_images, photo_rec, photo_grey
     print(f"== distorted path cut to {DISTORTED_IMAGES} images (80 until "
           "the retrieval path joined, 100 until the distributed path did)",
           flush=True)
     distorted, fp, rec, images, sc = pixel_path(
         dev, card, DISTORTED_IMAGES, args.max_features, distorted=True)
+    lap("distorted")
     dense = dense_path(dev, card, rec, images, sc)
+    lap("dense")
     del rec, images, sc
     entry = entry_path(fp, dev, card)
+    lap("entry")
     modes = pair_modes_step(fp, dev, card)
+    lap("retrieval (b)")
     del fp
     print(f"== planted path cut to {args.num_images} images (100 until the "
           "distributed path joined)", flush=True)
     if args.breakdown:
         _profile_5pt(dev, card)
     planted = main_path(dev, card, args.num_images, args.breakdown)
+    lap("planted")
     dist, dist_state = distributed_path(dev, card)
+    lap("distributed")
+    solvers = solvers_path(dev, card, dist_state)
+    lap("solvers")
     database, db_state = database_path(dev, card, work)
+    lap("database")
     commands = commands_path(dev, card, db_state)
+    lap("commands")
     retrieval = retrieval_path(dev, card, modes)
+    lap("retrieval (a), (c)")
     bapath, ba_state = ba_path(dev, card)
+    lap("ba")
     parallel = parallel_path(dev, card, dist_state, ba_state)
+    lap("parallel")
     del dist_state, ba_state
     rig = rig_path(dev, card)
+    lap("rig")
     finish_mapper(card, db_state)
+    lap("mapper process, the rest")
+    if photo_proc:
+        photos_process(card, *photo_proc, px_sc)
+        lap("photos process")
+    print(f"== seconds per phase, in order: {secs}", flush=True)
     paths = {"tool": tool, "planted": planted, "pixel": pixel,
+             "photos": photos, "orientation": orientation,
              "distorted": distorted, "dense": dense, "entry": entry,
-             "distributed": dist, "database": database,
+             "distributed": dist, "solvers": solvers, "database": database,
              "commands": commands, "retrieval": retrieval, "ba": bapath,
              "parallel": parallel, "rig": rig}
     for e, path in ((k1, "distorted"), (k2, "entry"), (k3, "entry"),
@@ -3103,8 +3781,9 @@ def _run(args, dev, card: str, mk, tm, t_start: float, work: str) -> int:
         e["launches_by_path"] = {p: c[e["name"]] for p, c in paths.items()}
         if not e["launches"]:
             raise AssertionError(f"{e['name']} never launched on its path")
-    if not retrieval["fused_matcher"]:
-        raise AssertionError("K1 never launched on the retrieval path")
+    for path in ("retrieval", "photos"):
+        if not paths[path]["fused_matcher"]:
+            raise AssertionError(f"K1 never launched on the {path} path")
     print(f"== whole run {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card, flush=True)

@@ -20,6 +20,9 @@ import torch
 from dagsfm_tpu_torch import device as devmod
 from dagsfm_tpu_torch.clustering.image_clustering import (ClusteringOptions,
                                                           ImageCluster)
+from dagsfm_tpu_torch.clustering.scene_clustering import \
+    SceneClusteringOptions
+from dagsfm_tpu_torch.estimation.coordinate_frame import ManhattanOptions
 from dagsfm_tpu_torch.estimation.rotation_averaging import RAOptions
 from dagsfm_tpu_torch.features import retrieval as rt
 from dagsfm_tpu_torch.features import sift
@@ -33,6 +36,7 @@ from dagsfm_tpu_torch.mvs import meshing as mvs_meshing
 from dagsfm_tpu_torch.mvs import patch_match as mvs_pm
 from dagsfm_tpu_torch.mvs import poisson as mvs_poisson
 from dagsfm_tpu_torch.ops import two_view_classify as tvc
+from dagsfm_tpu_torch.ops.ransac_variants import SPRTOptions
 from dagsfm_tpu_torch.parallel.ba_sharded import (ShardedBAProblem,
                                                   problem_from_numpy)
 from dagsfm_tpu_torch.pipeline.distributed_mapper import \
@@ -41,6 +45,7 @@ from dagsfm_tpu_torch.pipeline.feature_pipeline import (
     FeaturePipelineOptions, TwoViewRecord)
 from dagsfm_tpu_torch.scene import cameras as cm
 from dagsfm_tpu_torch.scene.camera_rig import CameraRig
+from dagsfm_tpu_torch.scene.image_reader import ImageReaderOptions
 from dagsfm_tpu_torch.scene.reconstruction import (ImageRecord, Point3DRecord,
                                                    Reconstruction, SceneArrays,
                                                    scene_arrays_from_numpy)
@@ -53,6 +58,7 @@ from dagsfm_tpu_torch.sfm.aligner import AlignerOptions
 from dagsfm_tpu_torch.sfm.incremental_mapper import MapperOptions
 from dagsfm_tpu_torch.sfm.mapper_controller import ControllerOptions
 from dagsfm_tpu_torch.sfm.track_selection import TrackSelectionOptions
+from dagsfm_tpu_torch.solvers.admm import ADMMOptions
 from dagsfm_tpu_torch.utils.options import ProjectOptions
 
 
@@ -347,3 +353,29 @@ def project_options(opts) -> ProjectOptions:
         mapper=MapperOptions(**_plain(f["mapper"])),
         track_selection=TrackSelectionOptions(
             **_plain(f["track_selection"])))
+
+
+def image_reader_options(opts) -> ImageReaderOptions:
+    """ImageReaderOptions from the reference's (a dataclass or a dict)."""
+    return ImageReaderOptions(**_plain(opts))
+
+
+def manhattan_options(opts) -> ManhattanOptions:
+    """ManhattanOptions from the reference's (a dataclass or a dict)."""
+    return ManhattanOptions(**_plain(opts))
+
+
+def scene_clustering_options(opts) -> SceneClusteringOptions:
+    """SceneClusteringOptions from the reference's (a dataclass or a
+    dict)."""
+    return SceneClusteringOptions(**_plain(opts))
+
+
+def admm_options(opts) -> ADMMOptions:
+    """ADMMOptions from the reference's (a NamedTuple or a dict)."""
+    return ADMMOptions(**_plain(opts))
+
+
+def sprt_options(opts) -> SPRTOptions:
+    """SPRTOptions from the reference's (a NamedTuple or a dict)."""
+    return SPRTOptions(**_plain(opts))

@@ -67,7 +67,7 @@ def _trilinear_scatter(grid_shape, pts, vals):
     for key, w in _corners(pts, G):
         keys.append(key)
         parts.append(vals * w[:, None])
-    seg = segments(torch.cat(keys).cpu().numpy(), G ** 3, pts.device)
+    seg = segments(torch.cat(keys), G ** 3, pts.device)
     return _segment_sum(torch.cat(parts), seg).reshape(G, G, G, C)
 
 

@@ -1,8 +1,8 @@
 """Command-line interface: `python -m dagsfm_tpu_torch <command>`.
 
 Port of dagsfm_tpu/pipeline/cli.py, with the JAX package's flag names
-and result lines. Ported so far are the commands of the parallel layer
-and those of pair selection on a database of features:
+and result lines, and all 38 of its commands: those of the parallel
+layer and of pair selection on a database of features:
 
   local_sfm_worker       claim cluster jobs from a work_dir and map them
   local_matching_worker  claim matching jobs from a work_dir: extract,
@@ -49,6 +49,31 @@ the commands on a database or a model:
   feature_importer       features from COLMAP text files into a database
   project_generator      a project .ini with a quality preset
   synthetic_scene        a synthetic ring scene's ground-truth model
+
+and the commands on a directory of photos (read with PIL, as the JAX
+package reads them; without PIL they exit with its message):
+
+  feature_extractor      SIFT over the photos into a database, cameras
+                         from EXIF (--camera_model, --single_camera,
+                         --camera_params, --default_focal_length_factor)
+  exhaustive_matcher /   extract, match and verify the photos into a
+  sequential_matcher /   database, every pair / sequential pairs /
+  vocab_tree_matcher /   retrieval pairs / global-descriptor pairs
+  global_matcher
+  automatic_reconstructor  photos -> workspace/database.db and
+                         workspace/sparse/0 (exhaustive pairs, mapping)
+  color_extractor        colour a model's points from its photos
+  image_rectifier        stereo-rectify listed pairs of a model's photos
+                         into .npz files (left, right, Q)
+  model_orientation_aligner  rotate a model to gravity from its image
+                         orientations, or to the Manhattan frame of its
+                         photos' lines
+
+Each photo command is a loader (`_load_images_and_cameras`,
+`_load_color_images`) and a body that takes the decoded arrays
+(`feature_extractor`, `run_matcher`, `automatic_reconstructor`,
+`color_extractor`, `image_rectifier`, `model_orientation_aligner`), so
+decoded arrays can go through the same bodies without files.
 
 Every command that computes on a device takes `--device` (default
 `cuda`; `cpu` runs on the CPU); the others run on the host alone.
@@ -113,6 +138,243 @@ def cmd_local_matching_worker(args):
                                device=args.device)
     print(f"matching worker {args.host_id}: completed jobs {done}")
     _print_peak_memory(args.device)
+
+
+def _image_reader_opts(args):
+    """ImageReaderOptions from the --ImageReader flags."""
+    from dagsfm_tpu_torch.scene.image_reader import ImageReaderOptions
+    return ImageReaderOptions(
+        camera_model=args.camera_model,
+        single_camera=bool(args.single_camera),
+        camera_params=args.camera_params or "",
+        default_focal_length_factor=args.default_focal_length_factor)
+
+
+def _load_images_and_cameras(args):
+    """A directory -> (images, names, cameras) with EXIF focal priors."""
+    from dagsfm_tpu_torch.scene.image_reader import read_images_with_cameras
+    return read_images_with_cameras(args.image_path,
+                                    _image_reader_opts(args))
+
+
+def feature_extractor(images: dict, cams: dict, database_path: str,
+                      sift_options, device=None):
+    """feature_extractor's body: SIFT of the decoded images written to
+    the database (cameras, images, keypoints, descriptors). Returns the
+    FeaturePipeline."""
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import (
+        FeaturePipeline, FeaturePipelineOptions)
+    opts = FeaturePipelineOptions()
+    opts.sift = sift_options
+    fp = FeaturePipeline(images, cams, opts, device=device,
+                         database_path=database_path)
+    fp.extract_features()
+    fp.write_database()
+    return fp
+
+
+def cmd_feature_extractor(args):
+    from dagsfm_tpu_torch.features import sift
+    images, _names, cams = _load_images_and_cameras(args)
+    feature_extractor(images, cams, args.database_path, sift.SiftOptions(
+        max_num_features=args.max_num_features,
+        first_octave=args.first_octave, num_octaves=args.num_octaves,
+        max_image_size=args.max_image_size), device=args.device)
+    print(f"extracted features for {len(images)} images "
+          f"-> {args.database_path}")
+
+
+def run_matcher(images: dict, cams: dict, database_path: str, mode: str,
+                device=None):
+    """The matchers' body: extract, match (pair_mode `mode`) and verify
+    into the database, or load it where it holds two-view geometries
+    already. Returns the FeaturePipeline."""
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import (
+        FeaturePipeline, FeaturePipelineOptions)
+    fp = FeaturePipeline(images, cams, FeaturePipelineOptions(pair_mode=mode),
+                         device=device, database_path=database_path)
+    fp.run()
+    return fp
+
+
+def _run_matcher(args, mode):
+    images, _names, cams = _load_images_and_cameras(args)
+    fp = run_matcher(images, cams, args.database_path, mode, args.device)
+    print(f"matched ({mode}); two-view geometries: {len(fp.two_view)}")
+
+
+def cmd_exhaustive_matcher(args):
+    _run_matcher(args, "exhaustive")
+
+
+def cmd_sequential_matcher(args):
+    _run_matcher(args, "sequential")
+
+
+def cmd_vocab_tree_matcher(args):
+    """The JAX package's vocab_tree_matcher runs pair_mode "retrieval"
+    (BoW retrieval), and so does this one."""
+    _run_matcher(args, "retrieval")
+
+
+def cmd_global_matcher(args):
+    """Global-descriptor (VLAD over SIFT) nearest-neighbour pairs."""
+    _run_matcher(args, "global")
+
+
+def automatic_reconstructor(images: dict, cams: dict, workspace_path: str,
+                            device=None):
+    """automatic_reconstructor's body: exhaustive extraction, matching
+    and verification into workspace/database.db, incremental mapping,
+    the model written to workspace/sparse/0. Returns (the model, its
+    directory, the FeaturePipeline)."""
+    from dagsfm_tpu_torch.pipeline.feature_pipeline import (
+        FeaturePipeline, FeaturePipelineOptions)
+    from dagsfm_tpu_torch.scene import io as scene_io
+    from dagsfm_tpu_torch.sfm.incremental_mapper import (IncrementalMapper,
+                                                         MapperOptions)
+    db = os.path.join(workspace_path, "database.db")
+    os.makedirs(workspace_path, exist_ok=True)
+    fp = FeaturePipeline(images, cams,
+                         FeaturePipelineOptions(pair_mode="exhaustive"),
+                         device=device, database_path=db)
+    cams2, imgs2, graph = fp.run()
+    rec = IncrementalMapper(cams2, imgs2, graph, MapperOptions(),
+                            device=device).reconstruct()
+    out = os.path.join(workspace_path, "sparse", "0")
+    scene_io.write_model_bin(rec, out)
+    return rec, out, fp
+
+
+def cmd_automatic_reconstructor(args):
+    """One-click sparse pipeline (AutomaticReconstructionController)."""
+    images, _names, cams = _load_images_and_cameras(args)
+    rec, out, _ = automatic_reconstructor(images, cams, args.workspace_path,
+                                          args.device)
+    print(f"reconstruction: {rec.num_reg_images()} images, "
+          f"{rec.num_points3D()} points -> {out}")
+
+
+def _load_color_images(image_path: str, names_wanted=None) -> dict:
+    """RGB float32 arrays in [0, 1] keyed by file name."""
+    from dagsfm_tpu_torch.scene.image_reader import image_files
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise SystemExit("image loading requires PIL") from e
+    out = {}
+    for f in image_files(image_path):
+        if names_wanted is not None and f not in names_wanted:
+            continue
+        img = Image.open(os.path.join(image_path, f)).convert("RGB")
+        out[f] = np.asarray(img, np.float32) / 255.0
+    return out
+
+
+def color_extractor(rec, by_name: dict) -> int:
+    """color_extractor's body: each point's colour from the images (by
+    file name) of the model's images. Returns the points coloured."""
+    return rec.extract_colors({i: by_name[im.name]
+                               for i, im in rec.images.items()
+                               if im.name in by_name})
+
+
+def cmd_color_extractor(args):
+    """Colour a model's 3D points from its photos."""
+    from dagsfm_tpu_torch.scene import io as scene_io
+    rec = _read_model(args.input_path)
+    by_name = _load_color_images(args.image_path,
+                                 {im.name for im in rec.images.values()})
+    n = color_extractor(rec, by_name)
+    os.makedirs(args.output_path, exist_ok=True)
+    scene_io.write_model_bin(rec, args.output_path)
+    print(f"colored {n}/{rec.num_points3D()} points")
+
+
+def _stereo_pairs(path: str) -> list:
+    """The `name1 name2` lines of a pair list (other lines skipped)."""
+    with open(path) as f:
+        return [tuple(ln.split()) for ln in f if len(ln.split()) == 2]
+
+
+def image_rectifier(rec, by_name: dict, pairs: list, output_path: str,
+                    device=None) -> int:
+    """image_rectifier's body: each listed pair of the model's images
+    (RGB by file name, averaged to grey) undistorted and rectified by
+    their relative pose, saved as <stem1>-<stem2>.npz with left, right
+    and Q. Returns the pairs written."""
+    from dagsfm_tpu_torch.ops import rotations as rops
+    from dagsfm_tpu_torch.scene.undistortion import (
+        rectify_and_undistort_stereo_pair)
+    by_id = {im.name: i for i, im in rec.images.items()}
+    os.makedirs(output_path, exist_ok=True)
+    for name1, name2 in pairs:
+        im1, im2 = rec.images[by_id[name1]], rec.images[by_id[name2]]
+        R1 = rops.quat_to_rotmat_np(im1.qvec)
+        R2 = rops.quat_to_rotmat_np(im2.qvec)
+        # relative pose 2-from-1
+        R12 = R2 @ R1.T
+        t12 = im2.tvec - R12 @ im1.tvec
+        r1, r2, Q = rectify_and_undistort_stereo_pair(
+            np.mean(by_name[name1], axis=2), np.mean(by_name[name2], axis=2),
+            rec.cameras[im1.camera_id], rec.cameras[im2.camera_id],
+            rops.rotmat_to_quat_np(R12), t12, device=device)
+        stem = f"{os.path.splitext(name1)[0]}-{os.path.splitext(name2)[0]}"
+        np.savez(os.path.join(output_path, stem + ".npz"),
+                 left=r1, right=r2, Q=Q)
+    return len(pairs)
+
+
+def cmd_image_rectifier(args):
+    """Stereo-rectify the image pairs of a list file, `name1 name2` per
+    line."""
+    rec = _read_model(args.input_path)
+    n = image_rectifier(rec, _load_color_images(args.image_path),
+                        _stereo_pairs(args.stereo_pairs_list),
+                        args.output_path, args.device)
+    print(f"rectified {n} stereo pairs -> {args.output_path}")
+
+
+def model_orientation_aligner(rec, method: str, images: dict | None = None,
+                              max_image_size: int = 1024, device=None):
+    """model_orientation_aligner's body: the rotation of the chosen
+    method ("image-orientation": the consensus of the images' down axes
+    onto +y; "manhattan-world": the Manhattan frame of `images`, grey
+    arrays by image id, on `device`) applied to the model in place.
+    Returns (the rotation, the Manhattan frame or None)."""
+    from dagsfm_tpu_torch.estimation import coordinate_frame as cf
+    frame = None
+    if method == "image-orientation":
+        gravity = cf.estimate_gravity_vector_from_image_orientation(rec)
+        tform = cf.rotation_from_unit_vectors(gravity, [0, 1, 0])
+    elif method == "manhattan-world":
+        frame = cf.estimate_manhattan_world_frame(
+            rec, images, cf.ManhattanOptions(max_image_size=max_image_size),
+            device=device)
+        tform = cf.align_to_manhattan_world(rec, frame)
+    else:
+        raise SystemExit("ERROR: Invalid `method` - supported values are "
+                         "'MANHATTAN-WORLD' or 'IMAGE-ORIENTATION'.")
+    rec.transform(1.0, np.asarray(tform, float), np.zeros(3))
+    return tform, frame
+
+
+def cmd_model_orientation_aligner(args):
+    """Align a model's frame to gravity or to the Manhattan axes."""
+    from dagsfm_tpu_torch.scene import io as scene_io
+    rec = _read_model(args.input_path)
+    method = args.method.lower()
+    images = None
+    if method == "manhattan-world":
+        by_name = _load_color_images(
+            args.image_path, {im.name for im in rec.images.values()})
+        images = {i: np.mean(by_name[im.name], axis=2)
+                  for i, im in rec.images.items() if im.name in by_name}
+    model_orientation_aligner(rec, method, images, args.max_image_size,
+                              args.device)
+    os.makedirs(args.output_path, exist_ok=True)
+    scene_io.write_model_bin(rec, args.output_path)
+    print(f"aligned ({method}) -> {args.output_path}")
 
 
 def _print_peak_memory(device) -> None:
@@ -713,6 +975,51 @@ def build_parser() -> argparse.ArgumentParser:
             sp.add_argument(f, **kw)
         sp.set_defaults(func=fn)
 
+    # the --ImageReader flags
+    image_reader_flags = [
+        ("--camera_model", dict(default="SIMPLE_RADIAL")),
+        ("--single_camera", dict(type=int, default=0)),
+        ("--camera_params", dict(default="")),
+        ("--default_focal_length_factor", dict(type=float, default=1.2)),
+    ]
+    add("feature_extractor", cmd_feature_extractor, [
+        ("--image_path", dict(required=True)),
+        ("--database_path", dict(required=True)),
+        ("--max_num_features", dict(type=int, default=8192)),
+        ("--first_octave", dict(type=int, default=-1)),
+        ("--num_octaves", dict(type=int, default=0)),
+        ("--max_image_size", dict(type=int, default=3200)),
+    ] + image_reader_flags)
+    for name, fn in (("exhaustive_matcher", cmd_exhaustive_matcher),
+                     ("sequential_matcher", cmd_sequential_matcher),
+                     ("vocab_tree_matcher", cmd_vocab_tree_matcher),
+                     ("global_matcher", cmd_global_matcher)):
+        add(name, fn, [
+            ("--image_path", dict(required=True)),
+            ("--database_path", dict(required=True)),
+        ] + image_reader_flags)
+    add("automatic_reconstructor", cmd_automatic_reconstructor, [
+        ("--image_path", dict(required=True)),
+        ("--workspace_path", dict(required=True)),
+    ] + image_reader_flags)
+    add("color_extractor", cmd_color_extractor, [
+        ("--image_path", dict(required=True)),
+        ("--input_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+    ], device=False)
+    add("image_rectifier", cmd_image_rectifier, [
+        ("--image_path", dict(required=True)),
+        ("--input_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+        ("--stereo_pairs_list", dict(required=True)),
+    ])
+    add("model_orientation_aligner", cmd_model_orientation_aligner, [
+        ("--image_path", dict(default="")),
+        ("--input_path", dict(required=True)),
+        ("--output_path", dict(required=True)),
+        ("--method", dict(default="MANHATTAN-WORLD")),
+        ("--max_image_size", dict(type=int, default=1024)),
+    ])
     add("distributed_mapper", cmd_distributed_mapper, [
         ("--database_path", dict(required=True)),
         ("--output_path", dict(required=True)),

@@ -63,18 +63,21 @@ class Segments(NamedTuple):
     chunk_counts: torch.Tensor   # (T,) int64, chunks per target
 
 
-def segments(keys: np.ndarray, num: int, device,
-             order: bool = True) -> Segments:
-    """Segments of the rows by target `keys` (host int array) in [0, num)."""
-    keys = np.asarray(keys, np.int64)
-    lengths = np.bincount(keys, minlength=num)
-    ordr = (torch.as_tensor(np.argsort(keys, kind="stable"), device=device)
-            if order else None)
-    counts = np.maximum(-(-lengths // SEGMENT_CHUNK), 1)   # empty: one
-    chunks = np.full(int(counts.sum()), SEGMENT_CHUNK, np.int64)
-    chunks[np.cumsum(counts) - 1] = lengths - SEGMENT_CHUNK * (counts - 1)
-    return Segments(ordr, *(torch.as_tensor(a, device=device)
-                            for a in (lengths, chunks, counts)))
+def segments(keys, num: int, device, order: bool = True) -> Segments:
+    """Segments of the rows by target `keys` (a host int array or a
+    tensor) in [0, num), built on `device`: a stable sort by key,
+    SEGMENT_CHUNK rows per chunk, one read-back for the number of
+    chunks."""
+    keys = (keys.to(device, torch.int64) if isinstance(keys, torch.Tensor)
+            else torch.as_tensor(np.asarray(keys, np.int64), device=device))
+    lengths = torch.bincount(keys, minlength=num)
+    ordr = torch.argsort(keys, stable=True) if order else None
+    counts = torch.clamp(-(-lengths // SEGMENT_CHUNK), min=1)   # empty: one
+    chunks = torch.full((int(counts.sum()),), SEGMENT_CHUNK,
+                        dtype=torch.int64, device=device)
+    chunks[torch.cumsum(counts, 0) - 1] = \
+        lengths - SEGMENT_CHUNK * (counts - 1)
+    return Segments(ordr, lengths, chunks, counts)
 
 
 def _segment_sum(x: torch.Tensor, seg: Segments) -> torch.Tensor:

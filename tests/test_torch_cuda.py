@@ -1145,3 +1145,85 @@ def test_generalized_pose_on_the_card_equals_the_cpu(cuda):
     np.testing.assert_allclose(a[0].numpy(), b[0].numpy(), rtol=0, atol=1e-9)
     np.testing.assert_allclose(a[2].numpy(), b[2].numpy(), rtol=1e-6,
                                atol=1e-20)
+
+
+def test_hough_repeats_bit_for_bit_and_equals_the_cpu_on_the_card(cuda):
+    """The Hough accumulator sums its votes in a fixed order on the card
+    (no atomics): two runs equal to the bit; the CPU's within 1e-5 of
+    the largest bin but next to pixels whose bin rounding decides."""
+    from chip_smoke import line_images
+    from dagsfm_tpu_torch.estimation import coordinate_frame as cf
+    rec = t_syn.to_reconstruction(t_syn.generate(t_syn.SyntheticSceneSpec(
+        num_cameras=3, num_points=50, seed=1)))
+    for img in line_images(rec).values():
+        x = torch.as_tensor(img, device=cuda)
+        a, rho_max = cf._hough_accumulate(x)
+        b, _ = cf._hough_accumulate(x)
+        assert torch.equal(a, b)
+        c, rho_cpu = cf._hough_accumulate(torch.as_tensor(img))
+        assert rho_cpu == rho_max
+        gap = (a.cpu() - c).abs()
+        assert int((gap > 1e-5 * float(c.max())).sum()) <= 8
+        on_card = cf.detect_lines(x, device=cuda)
+        on_cpu = cf.detect_lines(img, device="cpu")
+        assert np.array_equal(on_card[2], on_cpu[2])
+
+
+def test_solvers_on_the_card_equal_the_cpu(cuda):
+    """ADMM and the block SDP on the card against the CPU port (float64;
+    the products and Cholesky factors sum in other orders)."""
+    from dagsfm_tpu_torch.ops import rotations as rops
+    from dagsfm_tpu_torch.solvers import admm, sdp
+    rng = np.random.default_rng(3)
+    A = rng.normal(0, 1, (300, 20))
+    b = A @ rng.normal(0, 1, 20)
+    b[:40] += 8.0
+    opts = admm.ADMMOptions(max_iterations=200)
+    x_gpu = admm.l1_regression(torch.as_tensor(A, device=cuda),
+                               torch.as_tensor(b, device=cuda), opts)[0]
+    x_cpu = admm.l1_regression(torch.as_tensor(A), torch.as_tensor(b),
+                               opts)[0]
+    np.testing.assert_allclose(x_gpu.cpu().numpy(), x_cpu.numpy(),
+                               rtol=0, atol=1e-9)
+    n = 12
+    R = rops.angleaxis_to_rotmat(torch.as_tensor(
+        rng.normal(0, 0.8, (n, 3)))).numpy()
+    C = np.zeros((3 * n, 3 * n))
+    for i in range(n):
+        for j in range(i + 1, n):
+            C[3 * i:3 * i + 3, 3 * j:3 * j + 3] = (R[j] @ R[i].T).T
+            C[3 * j:3 * j + 3, 3 * i:3 * i + 3] = R[j] @ R[i].T
+    Y_gpu = sdp.solve_block_sdp(torch.as_tensor(C, device=cuda), n, 20)
+    Y_cpu = sdp.solve_block_sdp(torch.as_tensor(C), n, 20)
+    np.testing.assert_allclose(Y_gpu.cpu().numpy(), Y_cpu.numpy(), rtol=0,
+                               atol=1e-9)
+
+
+def test_robust_estimate_on_the_card_equals_the_cpu(cuda):
+    """The same samples on both devices: the same model and inliers."""
+    from dagsfm_tpu_torch.ops import ransac_variants as rv
+
+    def solver(xs, ys):
+        a, b = ys[1] - ys[0], xs[0] - xs[1]
+        n = torch.sqrt(a * a + b * b)
+        return (torch.stack([a / n, b / n, -(a * xs[0] + b * ys[0]) / n])
+                [None], (n > 1e-9)[None])
+
+    def residual(m, xs, ys):
+        return (m[0] * xs + m[1] * ys + m[2]) ** 2
+
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-5, 5, 400)
+    y = 2 * x + 1 + rng.normal(0, 0.01, 400)
+    y[:100] += 5.0
+    idx = torch.as_tensor(rng.integers(0, 400, (256, 2)))
+    idx = idx[idx[:, 0] != idx[:, 1]]
+    for scoring in ("msac", "lmeds"):
+        out = [rv.robust_estimate(
+            solver, residual, (torch.as_tensor(x, device=d),
+                               torch.as_tensor(y, device=d)),
+            torch.ones(400, dtype=torch.bool, device=d), 2, 0.01,
+            scoring=scoring, sample_idx=idx.to(d)) for d in (cuda, "cpu")]
+        np.testing.assert_allclose(out[0].model.cpu().numpy(),
+                                   out[1].model.numpy(), rtol=0, atol=1e-12)
+        assert torch.equal(out[0].inliers.cpu(), out[1].inliers)

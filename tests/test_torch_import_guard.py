@@ -73,7 +73,12 @@ def test_cli_runs_without_jax_or_reference():
              ["database_merger"], ["feature_importer"], ["model_analyzer"],
              ["model_merger"], ["model_aligner"], ["point_filtering"],
              ["image_deleter"], ["image_filterer"], ["synthetic_scene"],
-             ["project_generator"], ["rig_bundle_adjuster"]]
+             ["project_generator"], ["rig_bundle_adjuster"],
+             ["feature_extractor"], ["exhaustive_matcher"],
+             ["sequential_matcher"], ["vocab_tree_matcher"],
+             ["global_matcher"], ["automatic_reconstructor"],
+             ["color_extractor"], ["image_rectifier"],
+             ["model_orientation_aligner"]]
     out = _run(head + (
         "import contextlib, io, runpy\n"
         f"for argv in {argvs!r}:\n"

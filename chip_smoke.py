@@ -18,7 +18,8 @@ any error:
      K3 on the same inputs must agree bit for bit; each timed with CUDA
      events (device time, the launches queued behind a spin kernel)
      beside its bound and one PyTorch call, K1 also at the pixel path's
-     shape (B = 128, K = 3,712) and K3 at 3,712 x 3,712;
+     shape (B = 128, K = 3,712) and the tools path's (B = 128, K = 512)
+     and K3 at 3,712 x 3,712;
   4. the tool path: dagsfm_tpu_torch.tools.matcher_mfu (K4's four modes
      and K1 at B = 256, K = 1024);
   5. the pixel path, cut to 12 images (66 pairs), the number of
@@ -154,7 +155,15 @@ any error:
      0.1 degree of the controller's L1-IRLS rotations; l1_regression,
      constrained_l1 and box_qp on planted problems; robust_estimate with
      each sampler and both scorings on a planted line with a quarter
-     outliers.
+     outliers;
+  19. the tools path, after the rig path: the seven ported tools/ programs
+     in this process through their `run` at their smoke sizes: e2e_1000
+     at 101 rendered images (two clusters of at most 100; at least 90 %
+     registered and ATE < 0.15; its K1 launches counted under "tools"),
+     mapper_profile at 20 images (reads counted by caller) with
+     multiproc_smoke's two processes (gloo) beside it, profile_two_view
+     at 4 pairs, ba_phase_profile, prologue_probe and scaling_curves at
+     --smoke.
 Every kernel launch counter is zeroed just before each path and read
 just after it. It prints a `kernels` JSON line (K1's launches are the
 distorted path's), the card line and, last, the result.
@@ -171,10 +180,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import io
 import json
 import math
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -237,6 +248,10 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 SOLVER_SWEEPS = 50       # the solvers path: estimate_rotations_lagrange_dual's
 #                          default sweeps of the block SDP
+TOOLS_E2E_IMAGES = 101   # the tools path's e2e_1000: two clusters of <= 100
+TOOLS_MAPPER_IMAGES = 20  # the tools path's mapper_profile
+TOOLS_PAIRS = 4          # the tools path's profile_two_view, one call each
+TOOLS_SLOTS = 512        # keypoint slots per image on the tools path
 RIG_SNAPSHOTS = 50       # the rig path: a four-camera rig (ETH3D's rig
 RIG_POINTS = 1500        # datasets use four cameras) on a ring of 50
 RIG_TRACK = (8, 16)      # snapshots; each point seen by 8-16 of them
@@ -591,12 +606,18 @@ def kernel_phase(mk, dev, card: str) -> dict:
                                            K_SLOTS, plain=True)
     ms2, _, bound2, lib2 = _time_k1(mk, dev, card, MATCH_BATCH, PIXEL_SLOTS,
                                     plain=False)
+    # and at the tools path's (e2e_1000's 512 SIFT features)
+    ms3, _, bound3, lib3 = _time_k1(mk, dev, card, MATCH_BATCH, TOOLS_SLOTS,
+                                    plain=False)
     return _entry("fused_matcher", "dagsfm_tpu_torch/csrc/fused_matcher.cu",
                   "dagsfm_tpu/ops/pallas_matcher.py:246", err, ms,
                   plain_ms, bound, lib_ms,
                   pixel_shape={"B": MATCH_BATCH, "K": PIXEL_SLOTS, "ms": ms2,
                                "bound_ms": bound2[0], "bound_by": bound2[1],
-                               "library_ms": lib2})
+                               "library_ms": lib2},
+                  tools_shape={"B": MATCH_BATCH, "K": TOOLS_SLOTS, "ms": ms3,
+                               "bound_ms": bound3[0], "bound_by": bound3[1],
+                               "library_ms": lib3})
 
 
 def _hold(name: str, out, ref, border=None) -> float:
@@ -1312,6 +1333,105 @@ def database_path(dev, card: str, work: str) -> tuple:
                              f"{n_db} of {len(ring)}")
     return counts, {"work": work, "db": db, "mgr": mgr, "scenes": scenes,
                     "mapper": mapper}
+
+
+def tools_path(dev, card: str) -> dict:
+    """The ported tools/ programs in this process at their smoke sizes,
+    through each one's `run`: e2e_1000 at TOOLS_E2E_IMAGES (at least two
+    clusters; its own gates, K1 must launch), mapper_profile at
+    TOOLS_MAPPER_IMAGES (90 % registered, reads counted) with
+    multiproc_smoke (two processes, gloo) beside it, profile_two_view at
+    TOOLS_PAIRS pairs, ba_phase_profile and prologue_probe at --smoke
+    and scaling_curves at --smoke (D = 1, 2, 4, 8). Returns the launch
+    counts of the phase."""
+    from dagsfm_tpu_torch.tools import (ba_phase_profile, e2e_1000,
+                                        mapper_profile, multiproc_smoke,
+                                        profile_two_view, prologue_probe,
+                                        scaling_curves)
+    print(f"== tools path: the seven ported tools/ programs in process at "
+          f"their smoke sizes (e2e_1000 at {TOOLS_E2E_IMAGES} images, "
+          f"mapper_profile at {TOOLS_MAPPER_IMAGES})", flush=True)
+    secs = {}
+    _zero_counts()                                    # counts zeroed
+    t0 = time.perf_counter()
+    e2e = e2e_1000.run(TOOLS_E2E_IMAGES, device=dev, log=sys.stdout)
+    secs["e2e_1000"] = time.perf_counter() - t0
+    k1_e2e = _counts()["fused_matcher"]
+    print(f"  e2e_1000 on {card}: {e2e['registered']}/{e2e['num_images']} "
+          f"registered, ATE {e2e['ate']:.6f}, rotation error "
+          f"{e2e['rot_err_deg_mean']:.6f} deg, separator RMSE "
+          f"{e2e['separator_rmse_px']:.6f} px, {e2e['num_clusters']} "
+          f"clusters {e2e['clustering']['sizes']}, {e2e['k1_launches']} K1 "
+          f"launches, peak {e2e['peak_device_memory_gib']:.2f} GiB, stages "
+          f"{ {k: round(v, 3) for k, v in e2e['stage_seconds'].items()} }",
+          flush=True)
+    if e2e["num_clusters"] < 2 or not e2e["k1_launches"] or not k1_e2e:
+        raise AssertionError("tools path: e2e_1000 made fewer than two "
+                             "clusters or launched no K1")
+
+    # multiproc_smoke's two processes start while mapper_profile maps
+    # (they hold the card for one all_reduce)
+    multi = {}
+    t0 = time.perf_counter()
+    side = threading.Thread(target=lambda: multi.update(
+        record=multiproc_smoke.run(device=dev)))
+    side.start()
+    mp = mapper_profile.run(TOOLS_MAPPER_IMAGES, device=dev,
+                            log=io.StringIO())
+    secs["mapper_profile"] = time.perf_counter() - t0
+    print(f"  mapper_profile: {mp['registered']}/{mp['num_images']} in "
+          f"{mp['mapping_seconds']:.3f} s ({mp['images_per_s']:.3f} "
+          f"images/s), {mp['reads']['total']} device-to-host reads "
+          f"({mp['reads']['per_registered_image']:.1f} per image; by kind "
+          f"{mp['reads']['by_kind']}), top callers " + "; ".join(
+              f"{c['count']} {c['kind']} {c['caller']}"
+              for c in mp["reads"]["top_callers"][:5]), flush=True)
+    if mp["registered"] < 0.9 * TOOLS_MAPPER_IMAGES or \
+            not mp["reads"]["top_callers"]:
+        raise AssertionError("tools path: mapper_profile out of limits")
+    side.join()
+    secs["multiproc_smoke, beside mapper_profile"] = \
+        time.perf_counter() - t0
+    ms = multi.get("record")
+    if not ms or not ms["pass"]:
+        raise AssertionError(f"tools path: multiproc_smoke failed {ms}")
+    print(f"  multiproc_smoke: pass {ms['pass']} in {ms['elapsed_s']:.3f} "
+          f"s, jobs by process {ms['jobs_by_host']}, all_reduce "
+          f"{[r['all_reduce'] for r in ms['processes']]}", flush=True)
+
+    t0 = time.perf_counter()
+    tv = profile_two_view.run(TOOLS_PAIRS, device=dev, reps=1)
+    secs["profile_two_view"] = time.perf_counter() - t0
+    print("  profile_two_view (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in tv["ms"].items()), flush=True)
+
+    t0 = time.perf_counter()
+    bp = ba_phase_profile.run(smoke=True, device=dev)
+    secs["ba_phase_profile"] = time.perf_counter() - t0
+    print("  ba_phase_profile --smoke (ms; GB/s): " + ", ".join(
+        f"{k} {v:.3f}" + (f" ({bp['roofline'][k]['achieved_gbps']:.1f})"
+                          if k in bp["roofline"] else "")
+        for k, v in bp["ms"].items()), flush=True)
+    t0 = time.perf_counter()
+    pp = prologue_probe.run(smoke=True, device=dev)
+    secs["prologue_probe"] = time.perf_counter() - t0
+    print(f"  prologue_probe --smoke: {len(pp['statements'])} statements, "
+          f"{pp['sum_ms']:.3f} ms in all, the longest " + ", ".join(
+              f"{s['statement']} {s['ms']:.3f}" for s in sorted(
+                  pp["statements"], key=lambda s: -s["ms"])[:3]), flush=True)
+
+    t0 = time.perf_counter()
+    sc = scaling_curves.run(smoke=True, device=dev, log=io.StringIO())
+    secs["scaling_curves"] = time.perf_counter() - t0
+    for name, curve in sc["curves"].items():
+        print(f"  scaling_curves {name}: " + "; ".join(
+            "D={devices} ".format(**r) + ", ".join(
+                f"{k} {v:.4f}" for k, v in r.items()
+                if k.endswith("_s") and v) for r in curve), flush=True)
+    counts = _counts()                                # counts read
+    print(f"  seconds per tool: { {k: round(v, 3) for k, v in secs.items()} }"
+          f"; launches {counts}", flush=True)
+    return counts
 
 
 def finish_mapper(card: str, state: dict) -> None:
@@ -3763,6 +3883,8 @@ def _run(args, dev, card: str, mk, tm, t_start: float, work: str) -> int:
     del dist_state, ba_state
     rig = rig_path(dev, card)
     lap("rig")
+    tools = tools_path(dev, card)
+    lap("tools")
     finish_mapper(card, db_state)
     lap("mapper process, the rest")
     if photo_proc:
@@ -3774,14 +3896,14 @@ def _run(args, dev, card: str, mk, tm, t_start: float, work: str) -> int:
              "distorted": distorted, "dense": dense, "entry": entry,
              "distributed": dist, "solvers": solvers, "database": database,
              "commands": commands, "retrieval": retrieval, "ba": bapath,
-             "parallel": parallel, "rig": rig}
+             "parallel": parallel, "rig": rig, "tools": tools}
     for e, path in ((k1, "distorted"), (k2, "entry"), (k3, "entry"),
                     (k4, "tool")):
         e["launches"] = paths[path][e["name"]]
         e["launches_by_path"] = {p: c[e["name"]] for p, c in paths.items()}
         if not e["launches"]:
             raise AssertionError(f"{e['name']} never launched on its path")
-    for path in ("retrieval", "photos"):
+    for path in ("retrieval", "photos", "tools"):
         if not paths[path]["fused_matcher"]:
             raise AssertionError(f"K1 never launched on the {path} path")
     print(f"== whole run {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -95,3 +95,35 @@ def test_every_command_has_the_reference_s_flags():
         "model_aligner", "point_filtering", "database_merger",
         "project_generator", "feature_importer", "image_deleter",
         "image_filterer", "color_extractor"}
+
+
+def _flags(path: str) -> set:
+    """The option strings a file passes to any `add_argument`."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return {n.args[0].value for n in ast.walk(tree)
+            if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+            and n.func.attr == "add_argument" and n.args
+            and isinstance(n.args[0], ast.Constant)
+            and str(n.args[0].value).startswith("--")}
+
+
+def test_every_tool_has_a_counterpart_with_its_flags():
+    """Every tools/*.py program of the JAX package is a module of
+    dagsfm_tpu_torch/tools/ with the same name, a `run` and a `main`, and
+    every flag of the reference tool; the seven ported in one slice also
+    take --device (default cuda) and --out."""
+    tools = os.path.join(ROOT, "tools")
+    ref = {f for f in os.listdir(tools) if f.endswith(".py")}
+    assert len(ref) == 8
+    for f in sorted(ref):
+        name = "dagsfm_tpu_torch.tools." + f[:-3]
+        port = importlib.import_module(name)
+        assert callable(port.run) and callable(port.main), name
+        got = _flags(port.__file__)
+        assert _flags(os.path.join(tools, f)) <= got, name
+        if f != "matcher_mfu.py":
+            assert {"--device", "--out"} <= got, name
+            device = next(a for a in port.parser()._actions
+                          if "--device" in a.option_strings)
+            assert device.default == "cuda", name

@@ -14,7 +14,8 @@ controller repeats bit for bit, and essential verification and the pose
 edges read from a database agree with the CPU; pair selection's k-means,
 tree descent and BoW histograms (borderline rule, and bit for bit
 between two runs), the Gabor embedding and VLAD, and SIFT with
-domain-size pooling and affine shape agree with the CPU port. Every
+domain-size pooling and affine shape agree with the CPU port; the
+1000-image tool (tools/e2e_1000) at 20 images repeats bit for bit. Every
 test here needs a CUDA card and skips without one.
 
 This file imports neither jax nor the JAX package, so it runs where only
@@ -23,6 +24,8 @@ PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -p no:xdist \
         -p no:cacheprovider -o addopts=""
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1227,3 +1230,38 @@ def test_robust_estimate_on_the_card_equals_the_cpu(cuda):
         np.testing.assert_allclose(out[0].model.cpu().numpy(),
                                    out[1].model.numpy(), rtol=0, atol=1e-12)
         assert torch.equal(out[0].inliers.cpu(), out[1].inliers)
+
+
+def test_e2e_1000_repeats_bit_for_bit_on_the_card(cuda, tmp_path,
+                                                  monkeypatch):
+    """The 1000-image tool at 20 images, twice on the card: K1 launches,
+    the gates hold, and the merged models (after the final BA) are the
+    same registered images and the same bits in their .bin files."""
+    from dagsfm_tpu_torch.pipeline.distributed_mapper import \
+        DistributedMapperController
+    from dagsfm_tpu_torch.scene import io as scene_io
+    from dagsfm_tpu_torch.tools import e2e_1000
+
+    merged = []
+    final_ba = DistributedMapperController.adjust_global_bundle
+
+    def keep(self, rec):
+        out = final_ba(self, rec)
+        merged.append(rec)
+        return out
+
+    monkeypatch.setattr(DistributedMapperController, "adjust_global_bundle",
+                        keep)
+    records = [e2e_1000.run(20, device=cuda, log=open(os.devnull, "w"))
+               for _ in range(2)]
+    assert all(r["k1_launches"] > 0 and r["registered"] >= 18
+               and r["ate"] < 0.15 for r in records)
+    assert records[0]["ate"] == records[1]["ate"]
+    assert merged[0].reg_image_ids == merged[1].reg_image_ids
+    files = []
+    for k, m in enumerate(merged):
+        scene_io.write_model_bin(m, str(tmp_path / str(k)))
+        files.append({f: (tmp_path / str(k) / f).read_bytes()
+                      for f in ("cameras.bin", "images.bin",
+                                "points3D.bin")})
+    assert files[0] == files[1]

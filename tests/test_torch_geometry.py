@@ -442,3 +442,17 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
             lambda: run_matcher_on_database("database.db", [(1, 2)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    # the ported tools/ programs: `run` and `main` without a device name
+    from dagsfm_tpu_torch.tools import (ba_phase_profile, e2e_1000,
+                                        mapper_profile, multiproc_smoke,
+                                        profile_two_view, prologue_probe,
+                                        scaling_curves)
+    for tool, small in ((e2e_1000, ["--n", "2"]),
+                        (mapper_profile, ["--n", "2"]),
+                        (profile_two_view, []),
+                        (ba_phase_profile, ["--smoke"]),
+                        (prologue_probe, ["--smoke"]),
+                        (multiproc_smoke, []), (scaling_curves, ["--smoke"])):
+        for call in (lambda: tool.run(), lambda: tool.main(small)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()

@@ -118,3 +118,32 @@ def test_port_sources_never_name_jax():
     offenders = [f for f in files for line in open(f)
                  if pat.match(line)]
     assert not offenders, offenders
+
+
+def test_tools_help_runs_without_jax_or_reference():
+    """`python -m dagsfm_tpu_torch.tools.<tool> --help` for every ported
+    tools/ program, under the guard and in one process."""
+    tools = sorted(f[:-3] for f in os.listdir(
+        os.path.join(ROOT, "dagsfm_tpu_torch", "tools"))
+        if f.endswith(".py") and f not in ("__init__.py", "common.py"))
+    assert len(tools) >= 10
+    head = _GUARD.split("import dagsfm_tpu_torch")[0]
+    out = _run(head + (
+        "import contextlib, io, runpy\n"
+        f"for name in {tools!r}:\n"
+        "    sys.argv = [name, '--help']\n"
+        "    buf = io.StringIO()\n"
+        "    try:\n"
+        "        with contextlib.redirect_stdout(buf):\n"
+        "            runpy.run_module('dagsfm_tpu_torch.tools.' + name,\n"
+        "                             run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (name, e.code)\n"
+        "    assert 'usage:' in buf.getvalue(), name\n"
+        "    print('HELP', name)\n"
+        "bad = [m for m in sys.modules if sys.modules[m] is not None and "
+        "(m == 'jax' or m.startswith(('jax.', 'dagsfm_tpu.')) or "
+        "m == 'dagsfm_tpu')]\n"
+        "assert not bad, bad\n"))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.count("HELP") == len(tools)

@@ -1,0 +1,14 @@
+"""The share of the untraced window in which the card is idle: one less
+the card's busy seconds per pair in the traced job (from the trace) over
+the untraced jobs' seconds per pair. The traced job's own span is not
+used: the profiler slows the host's launches, and so stretches the idle
+gaps, but not the kernels."""
+
+
+def read(ctx):
+    tr, c = ctx["trace"], ctx["counters"]
+    if tr is None or not tr["counters"].get("pairs") or not c.get("pairs") \
+            or ctx["window_s"] <= 0:
+        return None
+    busy = tr["busy_s"] / tr["counters"]["pairs"]
+    return 100.0 * (1.0 - busy / (ctx["window_s"] / c["pairs"]))

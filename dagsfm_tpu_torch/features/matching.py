@@ -19,6 +19,7 @@ import torch
 
 from dagsfm_tpu_torch import device as devmod
 from dagsfm_tpu_torch.ops import matcher_kernel as mk
+from dagsfm_tpu_torch.utils import observability as obs
 
 
 class MatchingOptions(NamedTuple):
@@ -100,7 +101,7 @@ def _match_pairs_resident(pairs: list, opts: MatchingOptions,
         i1 = torch.tensor([bank.slot[a] for a, _ in chunk], device=dev)
         i2 = torch.tensor([bank.slot[b] for _, b in chunk], device=dev)
         outs.append(_match_on_bank(bank.desc, bank.mask, i1, i2, opts))
-    j_all = torch.cat(outs).cpu().numpy()          # the one host fetch
+    j_all = obs.host_read(torch.cat(outs)).numpy()  # the one host fetch
     out = {}
     for pk, j in zip(pairs, j_all):
         rows = np.nonzero(j >= 0)[0][: opts.max_num_matches]

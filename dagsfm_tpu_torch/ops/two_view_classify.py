@@ -10,6 +10,11 @@ panoramic / watermark), `classify_two_view` and `pose_from_homography`.
 RANSAC sampling is split from solving (ops/ransac.py): the batch functions
 take their minimal-sample indices, and `classify_pairs` draws them from a
 `torch.Generator`.
+
+Each stage of a batch is a span of utils/observability: `verify.pack`,
+`verify.sample`, `verify.ransac.E`, `.F`, `.H`, `verify.pose`,
+`verify.read` (the one host read of the batch's results) and
+`verify.select`.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from dagsfm_tpu_torch import device as devmod
 from dagsfm_tpu_torch.ops import epipolar as epi
 from dagsfm_tpu_torch.ops import ransac as rnsc
+from dagsfm_tpu_torch.utils import observability as obs
 
 DEGENERATE = 1
 CALIBRATED = 2
@@ -114,12 +120,16 @@ def _efh_batched(x1, x2, p1, p2, mask, thr_n, thr_p, K1b, K2b, samples):
     {"E": (B, H, 5), "F": (B, H, 7), "H": (B, H, 4)} indices. Returns the
     reference's 14 outputs: E, nE, inlE, R, t, nf, F, nF, inlF, H, nH,
     inlH, R_F, t_F."""
-    resE = ransac_essential(x1, x2, mask, thr_n, samples["E"])
-    resF = ransac_fundamental(p1, p2, mask, thr_p, samples["F"])
-    resH = ransac_homography(p1, p2, mask, thr_p, samples["H"])
-    R, t, nf = epi.pose_from_essential(resE.model, x1, x2, resE.inliers)
-    E_up = K2b.transpose(-1, -2) @ resF.model @ K1b
-    R_F, t_F, _ = epi.pose_from_essential(E_up, x1, x2, resF.inliers)
+    with obs.span("verify.ransac.E"):
+        resE = ransac_essential(x1, x2, mask, thr_n, samples["E"])
+    with obs.span("verify.ransac.F"):
+        resF = ransac_fundamental(p1, p2, mask, thr_p, samples["F"])
+    with obs.span("verify.ransac.H"):
+        resH = ransac_homography(p1, p2, mask, thr_p, samples["H"])
+    with obs.span("verify.pose"):
+        R, t, nf = epi.pose_from_essential(resE.model, x1, x2, resE.inliers)
+        E_up = K2b.transpose(-1, -2) @ resF.model @ K1b
+        R_F, t_F, _ = epi.pose_from_essential(E_up, x1, x2, resF.inliers)
     return (resE.model, resE.num_inliers, resE.inliers, R, t, nf,
             resF.model, resF.num_inliers, resF.inliers,
             resH.model, resH.num_inliers, resH.inliers, R_F, t_F)
@@ -128,8 +138,10 @@ def _efh_batched(x1, x2, p1, p2, mask, thr_n, thr_p, K1b, K2b, samples):
 def _e_batched(x1, x2, mask, thr_n, samples):
     """Essential-only RANSAC + pose for a batch of pairs: the RansacResult,
     then R, t and the number of points in front."""
-    res = ransac_essential(x1, x2, mask, thr_n, samples["E"])
-    R, t, nf = epi.pose_from_essential(res.model, x1, x2, res.inliers)
+    with obs.span("verify.ransac.E"):
+        res = ransac_essential(x1, x2, mask, thr_n, samples["E"])
+    with obs.span("verify.pose"):
+        R, t, nf = epi.pose_from_essential(res.model, x1, x2, res.inliers)
     return res, R, t, nf
 
 
@@ -177,20 +189,21 @@ def classify_pairs(pair_data: list, options: TwoViewOptions = TwoViewOptions(),
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     out, rows = {}, []
-    for (pk, pix1, pix2, K1, K2, sz1, sz2, calibrated) in pair_data:
-        n = len(pix1)
-        if n < max(options.min_num_inliers, 8):
-            out[pk] = TwoViewResult(DEGENERATE, None, None, None, None,
-                                    None, np.zeros(n, bool), 0)
-            continue
-        x1 = (pix1 - K1[:2, 2]) / np.array([K1[0, 0], K1[1, 1]])
-        x2 = (pix2 - K2[:2, 2]) / np.array([K2[0, 0], K2[1, 1]])
-        f_mean = (K1[0, 0] + K1[1, 1] + K2[0, 0] + K2[1, 1]) / 4.0
-        kind = "e" if (options.essential_only and calibrated) else "efh"
-        rows.append((kind, pk, (pix1, pix2, x1, x2,
-                                (options.max_error_px / f_mean) ** 2,
-                                options.max_error_px ** 2, K1, K2, sz1, sz2,
-                                calibrated)))
+    with obs.span("verify.pack"):
+        for (pk, pix1, pix2, K1, K2, sz1, sz2, calibrated) in pair_data:
+            n = len(pix1)
+            if n < max(options.min_num_inliers, 8):
+                out[pk] = TwoViewResult(DEGENERATE, None, None, None, None,
+                                        None, np.zeros(n, bool), 0)
+                continue
+            x1 = (pix1 - K1[:2, 2]) / np.array([K1[0, 0], K1[1, 1]])
+            x2 = (pix2 - K2[:2, 2]) / np.array([K2[0, 0], K2[1, 1]])
+            f_mean = (K1[0, 0] + K1[1, 1] + K2[0, 0] + K2[1, 1]) / 4.0
+            kind = "e" if (options.essential_only and calibrated) else "efh"
+            rows.append((kind, pk, (pix1, pix2, x1, x2,
+                                    (options.max_error_px / f_mean) ** 2,
+                                    options.max_error_px ** 2, K1, K2, sz1,
+                                    sz2, calibrated)))
 
     for kind in ("e", "efh"):
         group = [r for r in rows if r[0] == kind]
@@ -203,11 +216,18 @@ def classify_pairs(pair_data: list, options: TwoViewOptions = TwoViewOptions(),
 
 
 def _run_chunk(kind, chunk, options, gen, dev):
-    (p1, p2, x1, x2), mask = pad_pairs([r[2][:4] for r in chunk], dev)
-    B, N = mask.shape
-    thr_n = devmod.as_tensor([r[2][4] for r in chunk], dev)
+    with obs.span("verify.pack"):
+        (p1, p2, x1, x2), mask = pad_pairs([r[2][:4] for r in chunk], dev)
+        B, N = mask.shape
+        thr_n = devmod.as_tensor([r[2][4] for r in chunk], dev)
+        if kind == "efh":
+            thr_p = devmod.as_tensor([r[2][5] for r in chunk], dev)
+            K1b = devmod.as_tensor(np.stack([r[2][6] for r in chunk]), dev)
+            K2b = devmod.as_tensor(np.stack([r[2][7] for r in chunk]), dev)
+    with obs.span("verify.sample"):
+        samples = draw_samples(gen, mask, options.num_hypotheses,
+                               "E" if kind == "e" else "EFH")
     if kind == "e":
-        samples = draw_samples(gen, mask, options.num_hypotheses, "E")
         resE, R, t, nf = _e_batched(x1, x2, mask, thr_n, samples)
         # F and H did not run: with nF = nH = 0 neither can be selected
         z = (lambda *s: torch.zeros((B,) + s))
@@ -215,22 +235,20 @@ def _run_chunk(kind, chunk, options, gen, dev):
                z(3, 3), z(), z(N).bool(), z(3, 3), z(), z(N).bool(),
                z(3, 3), z(3))
     else:
-        thr_p = devmod.as_tensor([r[2][5] for r in chunk], dev)
-        K1b = devmod.as_tensor(np.stack([r[2][6] for r in chunk]), dev)
-        K2b = devmod.as_tensor(np.stack([r[2][7] for r in chunk]), dev)
-        samples = draw_samples(gen, mask, options.num_hypotheses)
         res = _efh_batched(x1, x2, p1, p2, mask, thr_n, thr_p, K1b, K2b,
                            samples)
-    res = [r.cpu().numpy() for r in res]
+    with obs.span("verify.read"):
+        res = [obs.host_read(r).numpy() for r in res]
     results = []
-    for k, (_, pk, p) in enumerate(chunk):
-        n = len(p[0])
-        results.append((pk, _select_model(
-            *p[:4], *p[6:11], options, E=res[0][k], nE=int(res[1][k]),
-            inlE=res[2][k][:n], R_E=res[3][k], t_E=res[4][k],
-            nf=int(res[5][k]), F=res[6][k], nF=int(res[7][k]),
-            inlF=res[8][k][:n], H=res[9][k], nH=int(res[10][k]),
-            inlH=res[11][k][:n], R_F=res[12][k], t_F=res[13][k])))
+    with obs.span("verify.select"):
+        for k, (_, pk, p) in enumerate(chunk):
+            n = len(p[0])
+            results.append((pk, _select_model(
+                *p[:4], *p[6:11], options, E=res[0][k], nE=int(res[1][k]),
+                inlE=res[2][k][:n], R_E=res[3][k], t_E=res[4][k],
+                nf=int(res[5][k]), F=res[6][k], nF=int(res[7][k]),
+                inlF=res[8][k][:n], H=res[9][k], nH=int(res[10][k]),
+                inlH=res[11][k][:n], R_F=res[12][k], t_F=res[13][k])))
     return results
 
 

@@ -24,9 +24,9 @@ reference, that solve ignores the track selection.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
-import time
 
 import numpy as np
 import torch
@@ -52,6 +52,21 @@ from dagsfm_tpu_torch.sfm.incremental_mapper import (IncrementalMapper,
                                                      MapperOptions)
 from dagsfm_tpu_torch.sfm.track_selection import (TrackSelectionOptions,
                                                   select_tracks)
+from dagsfm_tpu_torch.utils import observability as obs
+
+
+def _stage(key: str):
+    """A pipeline stage: its method runs in the span `mapper.<key>`, whose
+    seconds become `timings[key]`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(self, *args, **kwargs):
+            with obs.span("mapper." + key) as s:
+                out = fn(self, *args, **kwargs)
+            self.timings[key] = s.seconds
+            return out
+        return run
+    return wrap
 
 
 @dataclasses.dataclass
@@ -113,22 +128,21 @@ class DistributedMapperController:
         self.view_graph.add_edge(TwoViewEdge(i, j, np.asarray(R),
                                              np.asarray(t), num_inliers))
 
-    def _built(self, t0: float) -> ViewGraph:
+    def _built(self) -> ViewGraph:
         self.view_graph_edges["built"] = self.view_graph.num_edges()
-        self.timings["view_graph"] = time.time() - t0
         return self.view_graph
 
+    @_stage("view_graph")
     def build_view_graph(self) -> ViewGraph:
         """One relative-pose edge per verified pair: from
         `two_view_geometries` when given, else from E/F/H classification
         of the match graph's pairs (calibrated pairs through E, the others
         through F or H; watermarks and degenerate pairs dropped)."""
-        t0 = time.time()
         if self.two_view_geometries is not None:
             for (i, j), (R, t, ninl, config) in \
                     self.two_view_geometries.items():
                 self._add_edge(i, j, R, t, ninl, config)
-            return self._built(t0)
+            return self._built()
 
         cam_of = {i: self.cameras[im.camera_id]
                   for i, im in self.images.items()}
@@ -152,11 +166,11 @@ class DistributedMapperController:
                                      device=self.device)
         for (i, j), res in results.items():
             self._add_edge(i, j, res.R, res.t, res.num_inliers, res.config)
-        return self._built(t0)
+        return self._built()
 
     # -------------------------------------- 2. filters + rotation averaging
+    @_stage("rotation_averaging")
     def filter_and_average_rotations(self):
-        t0 = time.time()
         self.view_graph.filter_cycles_by_rotation(
             self.opts.rotation_filter_max_deg, device=self.device)
         self.view_graph_edges["cycles"] = self.view_graph.num_edges()
@@ -184,18 +198,16 @@ class DistributedMapperController:
         self.view_graph = self.view_graph.subgraph(cc)
         self.view_graph_edges["final"] = self.view_graph.num_edges()
         self.global_rotations = {v: R_glob[index[v]] for v in cc}
-        self.timings["rotation_averaging"] = time.time() - t0
 
     # ------------------------------------------------ 3. clustering
+    @_stage("clustering")
     def cluster_scenes(self):
-        t0 = time.time()
         edges = {k: e.num_inliers for k, e in self.view_graph.edges.items()}
         ic = ImageClustering(sorted(self.view_graph.nodes), edges,
                              self.opts.clustering, device=self.device)
         ic.cut()
         self.clusters = ic.expand()
         self.clustering_summary = ic.summary
-        self.timings["clustering"] = time.time() - t0
         return self.clusters
 
     # ------------------------------------- 4. per-cluster reconstruction
@@ -211,11 +223,11 @@ class DistributedMapperController:
             im.cluster_id = cluster.cluster_id
         return rec
 
+    @_stage("reconstruction")
     def reconstruct_partitions(self, num_threads: int = 1):
         """Incremental SfM per cluster, biggest cluster first (a stable
         sort by size); with num_threads > 1 on a pool of threads, which
         gives the same models."""
-        t0 = time.time()
         order = sorted(range(len(self.clusters)),
                        key=lambda c: -len(self.clusters[c].image_ids))
         jobs = [self.clusters[c] for c in order]
@@ -227,24 +239,22 @@ class DistributedMapperController:
         self.local_recons = [r for r in recs if r.num_reg_images() >= 2]
         # registered images per local model (the merge grows the anchor's)
         self.local_reg_images = [r.num_reg_images() for r in recs]
-        self.timings["reconstruction"] = time.time() - t0
         return self.local_recons
 
     # ------------------------------------------------ 5. merge
+    @_stage("merge")
     def merge_clusters(self) -> Reconstruction:
-        t0 = time.time()
         aligner = SfMAligner(self.local_recons, self.opts.aligner,
                              device=self.device)
         merged = aligner.align()
         self.separators = aligner.separator_image_ids(merged)
-        self.timings["merge"] = time.time() - t0
         return merged
 
     # ---------------------------------------- 6. retriangulate + final BA
+    @_stage("retriangulation")
     def retriangulate(self, merged: Reconstruction):
         """Triangulate the separator images again on the merged model, then
         extend and fuse the tracks that the merge left split in two."""
-        t0 = time.time()
         mapper = IncrementalMapper.wrap(self.cameras, merged, self.graph,
                                         self.opts.mapper, device=self.device)
         for i in self.separators:
@@ -256,15 +266,14 @@ class DistributedMapperController:
         mapper.complete_tracks(sorted(sep_pts))
         mapper.merge_tracks(sep_pts)
         mapper.filter_points()
-        self.timings["retriangulation"] = time.time() - t0
 
+    @_stage("final_ba")
     def adjust_global_bundle(self, merged: Reconstruction):
         """Final BA: the first two images pinned, Cauchy loss of scale 1
         px, final_ba_iterations LM steps. In one process the selected
         tracks are free and the others held constant (and the loop may
         stop early); sharded, every track is free and every iteration
         runs, as in the reference."""
-        t0 = time.time()
         opts = ba.BAOptions(max_iterations=self.opts.final_ba_iterations,
                             loss="cauchy", loss_scale=1.0)
         select = self.opts.select_tracks_for_bundle_adjustment and \
@@ -293,7 +302,6 @@ class DistributedMapperController:
         merged.update_from_arrays(arrays._replace(
             image_qvec=prob.image_qvec, image_tvec=prob.image_tvec,
             points_xyz=points), ids)
-        self.timings["final_ba"] = time.time() - t0
 
     def separator_rmse(self, merged: Reconstruction) -> float:
         """Reprojection RMSE (px) over the separator images' observations
@@ -357,24 +365,24 @@ class DistributedMapperController:
         """The whole pipeline. With checkpoint_path the local models are
         exported there, and partitions already there skip straight to the
         merge."""
-        total0 = time.time()
-        if checkpoint_path and self.partitions_exist(checkpoint_path):
-            self.load_partitions(checkpoint_path)
-        else:
-            self.build_view_graph()
-            self.filter_and_average_rotations()
-            self.cluster_scenes()
-            self.reconstruct_partitions()
-            if checkpoint_path:
-                self.export_partitions(checkpoint_path)
-        if not self.local_recons:
-            return Reconstruction()
-        merged = self.merge_clusters()
-        if self.opts.retriangulate:
-            self.retriangulate(merged)
-        if self.opts.final_ba:
-            self.adjust_global_bundle(merged)
-        self.timings["total"] = time.time() - total0
+        with obs.span("mapper.run") as total:
+            if checkpoint_path and self.partitions_exist(checkpoint_path):
+                self.load_partitions(checkpoint_path)
+            else:
+                self.build_view_graph()
+                self.filter_and_average_rotations()
+                self.cluster_scenes()
+                self.reconstruct_partitions()
+                if checkpoint_path:
+                    self.export_partitions(checkpoint_path)
+            if not self.local_recons:
+                return Reconstruction()
+            merged = self.merge_clusters()
+            if self.opts.retriangulate:
+                self.retriangulate(merged)
+            if self.opts.final_ba:
+                self.adjust_global_bundle(merged)
+        self.timings["total"] = total.seconds
         return merged
 
     def report(self) -> str:

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 
 import numpy as np
 import torch
@@ -37,6 +36,7 @@ from dagsfm_tpu_torch.scene import io as scene_io
 from dagsfm_tpu_torch.scene.reconstruction import ImageRecord
 from dagsfm_tpu_torch.sfm.correspondence_graph import CorrespondenceGraph
 from dagsfm_tpu_torch.sfm.two_view import verify_pairs
+from dagsfm_tpu_torch.utils import observability as obs
 
 
 class TwoViewRecord:
@@ -120,7 +120,11 @@ class FeaturePipeline:
         `sift.resize_linear`) and the keypoints mapped back. Host copies:
         keypoints and kp_geom float64, descriptors float32, masks; the bf16
         bank stays on the device."""
-        t0 = time.time()
+        with obs.span("extract") as s:
+            self._extract_features()
+        self.timings["extraction"] = s.seconds
+
+    def _extract_features(self):
         ids = sorted(self.images)
         B = self.opts.batch_size
         H, W = next(iter(self.images.values())).shape
@@ -165,7 +169,6 @@ class FeaturePipeline:
                 bank_ids, torch.cat(bank_desc), torch.cat(bank_mask))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.timings["extraction"] = time.time() - t0
 
     def select_pairs(self) -> list:
         """Candidate pairs (i, j), i < j, by `pair_mode`. The device math
@@ -236,56 +239,70 @@ class FeaturePipeline:
         return sorted(pairs)
 
     def match_and_verify(self, pairs: list | None = None):
-        t0 = time.time()
-        if pairs is None:
-            pairs = self.select_pairs()
-            self.timings["pair_selection"] = time.time() - t0
-        t0 = time.time()
-        raw = fm.match_pairs(self.descriptors, self.masks, pairs,
-                             self.opts.matching, bank=self.bank,
-                             device=self.device)
-        self.timings["matching"] = time.time() - t0
+        """Match `pairs` (None: `select_pairs()`) and verify each pair with
+        full E/F/H classification, optionally guided re-matching. One
+        root span, `verify.job`, counting its `pairs` and `classified`."""
+        with obs.span("verify.job"):
+            self._match_and_verify(pairs)
 
-        t0 = time.time()
-        pair_data = []
-        for (i, j), m in raw.items():
-            if len(m) < self.opts.min_num_inliers:
-                continue
-            cam_i, cam_j = self.cameras[i], self.cameras[j]
-            pair_data.append((
-                (i, j), self.keypoints[i][m[:, 0]], self.keypoints[j][m[:, 1]],
-                cam_i.calibration_matrix(), cam_j.calibration_matrix(),
-                (cam_i.width, cam_i.height), (cam_j.width, cam_j.height),
-                cam_i.prior_focal and cam_j.prior_focal))
-        tv_opts = tvc.TwoViewOptions(
-            min_num_inliers=self.opts.min_num_inliers,
-            max_error_px=self.opts.max_error_px,
-            num_hypotheses=self.opts.num_ransac_hypotheses,
-            essential_only=self.opts.two_view_essential_only)
-        results = tvc.classify_pairs(pair_data, tv_opts, seed=self.opts.seed,
-                                     device=self.device)
-        t_guided = 0.0
-        for (i, j), res in results.items():
-            if res.config in (tvc.DEGENERATE, tvc.WATERMARK):
-                continue
-            if res.num_inliers < self.opts.min_num_inliers:
-                continue
-            m = raw[(i, j)]
-            inlier_matches = m[res.inlier_mask]
-            num_inliers = res.num_inliers
-            if self.opts.guided_matching:
-                tg = time.time()
-                gm = self._guided_rematch((i, j), res)
-                t_guided += time.time() - tg
-                if gm is not None and len(gm) >= num_inliers:
-                    inlier_matches, num_inliers = gm, len(gm)
-            self.matches[(i, j)] = m
-            self.two_view[(i, j)] = TwoViewRecord(
-                R=res.R, t=res.t, inlier_matches=inlier_matches,
-                num_inliers=num_inliers, config=res.config,
-                E=res.E, F=res.F, H=res.H)
-        self.timings["verification"] = time.time() - t0
+    def _match_and_verify(self, pairs):
+        if pairs is None:
+            with obs.span("select_pairs") as s:
+                pairs = self.select_pairs()
+            self.timings["pair_selection"] = s.seconds
+        with obs.span("match") as s:
+            raw = fm.match_pairs(self.descriptors, self.masks, pairs,
+                                 self.opts.matching, bank=self.bank,
+                                 device=self.device)
+        self.timings["matching"] = s.seconds
+
+        with obs.span("verify") as verify:
+            with obs.span("verify.pack"):
+                pair_data = []
+                for (i, j), m in raw.items():
+                    if len(m) < self.opts.min_num_inliers:
+                        continue
+                    cam_i, cam_j = self.cameras[i], self.cameras[j]
+                    pair_data.append((
+                        (i, j), self.keypoints[i][m[:, 0]],
+                        self.keypoints[j][m[:, 1]],
+                        cam_i.calibration_matrix(),
+                        cam_j.calibration_matrix(),
+                        (cam_i.width, cam_i.height),
+                        (cam_j.width, cam_j.height),
+                        cam_i.prior_focal and cam_j.prior_focal))
+            tv_opts = tvc.TwoViewOptions(
+                min_num_inliers=self.opts.min_num_inliers,
+                max_error_px=self.opts.max_error_px,
+                num_hypotheses=self.opts.num_ransac_hypotheses,
+                essential_only=self.opts.two_view_essential_only)
+            results = tvc.classify_pairs(pair_data, tv_opts,
+                                         seed=self.opts.seed,
+                                         device=self.device)
+            t_guided = 0.0
+            for (i, j), res in results.items():
+                if res.config in (tvc.DEGENERATE, tvc.WATERMARK):
+                    continue
+                if res.num_inliers < self.opts.min_num_inliers:
+                    continue
+                m = raw[(i, j)]
+                inlier_matches = m[res.inlier_mask]
+                num_inliers = res.num_inliers
+                if self.opts.guided_matching:
+                    with obs.span("verify.guided") as g:
+                        gm = self._guided_rematch((i, j), res)
+                    t_guided += g.seconds
+                    if gm is not None and len(gm) >= num_inliers:
+                        inlier_matches, num_inliers = gm, len(gm)
+                self.matches[(i, j)] = m
+                self.two_view[(i, j)] = TwoViewRecord(
+                    R=res.R, t=res.t, inlier_matches=inlier_matches,
+                    num_inliers=num_inliers, config=res.config,
+                    E=res.E, F=res.F, H=res.H)
+        self.timings["verification"] = verify.seconds
         self.num_classified = len(pair_data)
+        obs.count("pairs", len(pairs))
+        obs.count("classified", len(pair_data))
         if self.opts.guided_matching:
             self.timings["guided_matching"] = t_guided  # within verification
 

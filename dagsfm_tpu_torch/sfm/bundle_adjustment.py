@@ -43,6 +43,7 @@ from dagsfm_tpu_torch.device import DTYPE
 from dagsfm_tpu_torch.ops import rotations as rops
 from dagsfm_tpu_torch.ops import solve as lin
 from dagsfm_tpu_torch.scene import cameras as cm
+from dagsfm_tpu_torch.utils import observability as obs
 
 # `_segment_sum` adds each run in chunks of at most this many rows, then
 # the chunk sums of each target: CUDA's segment_reduce walks a run with
@@ -492,7 +493,9 @@ def _solve_dense_joint(prob: BAProblem, pairs: Pairs, r_w, Jc_w, Jp_w, Jg_w,
 def _pcg(S_mv, precond, b: tuple, x0: tuple | None, opts: BAOptions):
     """Preconditioned CG on a system of several blocks (tuples of
     tensors), from x0 (None: zero), stopping at |r| <= linear_rtol |b| or
-    after max_linear_iterations. Returns (x, iterations)."""
+    after max_linear_iterations. Returns (x, iterations). The stopping
+    test reads one boolean to the host before each iteration, and once
+    more after the last unless the cap ended the loop."""
     def dot(a, c):
         return sum(torch.sum(u * w) for u, w in zip(a, c))
 
@@ -506,7 +509,7 @@ def _pcg(S_mv, precond, b: tuple, x0: tuple | None, opts: BAOptions):
     p, rz = z, dot(r, z)
     k = 0
     while k < opts.max_linear_iterations and \
-            bool(torch.sqrt(dot(r, r)) > tol):
+            obs.host_read(torch.sqrt(dot(r, r)) > tol, bool):
         Ap = S_mv(*p)
         pAp = dot(p, Ap)
         alpha = rz / torch.where(torch.abs(pAp) < 1e-30, 1e-30, pAp)
@@ -565,8 +568,9 @@ def _solve_iterative(prob: BAProblem, r_w, Jc_w, Jp_w, lam: float,
         Sx = _mv(Ud, xm) - z
         return (Sx * free + x * (1.0 - free),)
 
-    (dcam,), k = _pcg(S_mv, lambda v: (_mv(Minv, v),), (b,),
-                      None if x_init is None else (x_init * free,), opts)
+    with obs.span("ba.pcg"):
+        (dcam,), k = _pcg(S_mv, lambda v: (_mv(Minv, v),), (b,),
+                          None if x_init is None else (x_init * free,), opts)
     dcam = dcam * free
     wtd = _segment_sum(_mtv(W, dcam[oi]), prob.by_point)
     dpt = _mv(Vinv, gp - wtd) * (~prob.const_points)[:, None].to(dt)
@@ -621,10 +625,12 @@ def _solve_iterative_joint(prob: BAProblem, r_w, Jc_w, Jp_w, Jg_w,
         return (Sxp * free + xp * (1.0 - free),
                 Sxg * gfree + xg * (1.0 - gfree))
 
-    (dcam, dint), k = _pcg(
-        S_mv, lambda vp, vg: (_mv(Minv_p, vp), _mv(Minv_g, vg)), (b_p, b_g),
-        None if x_init is None else (x_init * free, torch.zeros_like(b_g)),
-        opts)
+    with obs.span("ba.pcg"):
+        (dcam, dint), k = _pcg(
+            S_mv, lambda vp, vg: (_mv(Minv_p, vp), _mv(Minv_g, vg)),
+            (b_p, b_g),
+            None if x_init is None else (x_init * free,
+                                         torch.zeros_like(b_g)), opts)
     dcam, dint = dcam * free, dint * gfree
     wtd = _segment_sum(_mtv(Wc, dcam[oi]) + _mtv(Wg, dint[oc]),
                        prob.by_point)
@@ -695,7 +701,16 @@ def solve(prob: BAProblem, opts: BAOptions = BAOptions(), max_iters=None):
     As the reference: with an explicit max_iters or ftol > 0 the loop
     exits early on convergence; otherwise it runs all max_iterations.
     The iterative solver's CG starts from the previous LM step's pose
-    increment, accepted or not."""
+    increment, accepted or not. One span, `ba.solve`, counting its
+    `lm_steps`; each step's `ba.linearize`, `ba.solve_step` (with
+    `ba.pcg`) and `ba.evaluate` inside it."""
+    with obs.span("ba.solve"):
+        prob, stats = _solve(prob, opts, max_iters)
+        obs.count("lm_steps", stats.num_iterations)
+    return prob, stats
+
+
+def _solve(prob: BAProblem, opts: BAOptions, max_iters):
     refine = _refine_any(opts)
     I = prob.image_qvec.shape[0]
     solver = opts.solver
@@ -706,19 +721,23 @@ def solve(prob: BAProblem, opts: BAOptions = BAOptions(), max_iters=None):
     pairs = _pairs(prob, refine) if solver == "dense" else None
     bound = opts.max_iterations if max_iters is None else int(max_iters)
     early_exit = max_iters is not None or opts.ftol > 0
-    cost = float(_plain_cost(prob, opts))
+    cost = obs.host_read(_plain_cost(prob, opts), float)
     init_cost = cost
     lam = float(opts.init_lambda)
     it, small_cnt, cg = 0, 0, 0
     dprev = prob.image_tvec.new_zeros((I, 6))
     while it < bound:
-        r, Jc, Jp, Jg = _residuals_and_jacobians(prob, refine)
-        w = _robust_weights(torch.sum(r * r, -1), opts.loss, opts.loss_scale)
-        dcam, dint, dpt, k = _build_and_solve(prob, pairs, r, Jc, Jp, Jg, w,
-                                              lam, opts, dprev)
+        with obs.span("ba.linearize"):
+            r, Jc, Jp, Jg = _residuals_and_jacobians(prob, refine)
+            w = _robust_weights(torch.sum(r * r, -1), opts.loss,
+                                opts.loss_scale)
+        with obs.span("ba.solve_step"):
+            dcam, dint, dpt, k = _build_and_solve(prob, pairs, r, Jc, Jp, Jg,
+                                                  w, lam, opts, dprev)
         cg += k
-        trial = _apply_step(prob, dcam, dpt, dint)
-        new_cost = float(_plain_cost(trial, opts))
+        with obs.span("ba.evaluate"):
+            trial = _apply_step(prob, dcam, dpt, dint)
+            new_cost = obs.host_read(_plain_cost(trial, opts), float)
         accept = new_cost < cost
         if accept:
             prob = trial

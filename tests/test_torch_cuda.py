@@ -15,7 +15,9 @@ edges read from a database agree with the CPU; pair selection's k-means,
 tree descent and BoW histograms (borderline rule, and bit for bit
 between two runs), the Gabor embedding and VLAD, and SIFT with
 domain-size pooling and affine shape agree with the CPU port; the
-1000-image tool (tools/e2e_1000) at 20 images repeats bit for bit. Every
+1000-image tool (tools/e2e_1000) at 20 images repeats bit for bit; the
+program's spans are on the profiler's clock (K1's launch inside the
+`match` span) and profiler_trace writes them beside the kernels. Every
 test here needs a CUDA card and skips without one.
 
 This file imports neither jax nor the JAX package, so it runs where only
@@ -1265,3 +1267,76 @@ def test_e2e_1000_repeats_bit_for_bit_on_the_card(cuda, tmp_path,
                       for f in ("cameras.bin", "images.bin",
                                 "points3D.bin")})
     assert files[0] == files[1]
+
+
+# ----------------------------------------------- spans on the profiler clock
+
+def _planted_pipeline(device):
+    """A FeaturePipeline on planted features of 6 images, every pair."""
+    from dagsfm_tpu_torch.pipeline import feature_pipeline as t_fp
+    sc = t_syn.generate(t_syn.SyntheticSceneSpec(
+        num_cameras=6, num_points=150, seed=3, max_track_length=4))
+    kps, descs, masks = plant_features(sc, K=256, seed=3)
+    ids = sorted(kps)
+    fp = t_fp.FeaturePipeline({i: None for i in ids},
+                              {i: sc.camera for i in ids},
+                              t_fp.FeaturePipelineOptions(
+                                  num_ransac_hypotheses=64),
+                              device=device)
+    fp.keypoints, fp.descriptors, fp.masks = kps, descs, masks
+    fp.bank = t_fm.make_bank(descs, masks, ids, device=device)
+    return fp, [(i, j) for i in ids for j in ids if i < j]
+
+
+def test_k1_launch_falls_inside_the_match_span(cuda):
+    """In a trace of the card's activity alone, the CUDA call that
+    launched K1 lies between the stamps the `match` span's root record
+    keeps: the spans are on the profiler's clock. That trace holds no
+    event of a span, so none can cover the card's idle gaps in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dagsfm_tpu_torch.utils import observability as obs
+    fp, pairs = _planted_pipeline(cuda)
+    fp.match_and_verify(pairs)                     # K1 built
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fp.match_and_verify(pairs)
+        torch.cuda.synchronize()
+    rec = obs.roots()[-1]
+    assert rec["name"] == "verify.job" and rec["profiled"]
+    (s0, s1), = [(a, b) for n, a, b in rec["stamps"] if n == "match"]
+    events = list(prof.profiler.kineto_results.events())
+    k1 = {e.correlation_id() for e in events
+          if e.device_type() == DeviceType.CUDA and "match_tiles" in e.name()}
+    launches = [e for e in events if e.device_type() != DeviceType.CUDA
+                and "LaunchKernel" in e.name() and e.correlation_id() in k1]
+    assert k1 and len(launches) == len(k1)
+    for e in launches:
+        assert s0 <= e.start_ns() and e.start_ns() + e.duration_ns() <= s1
+    assert not [e.name() for e in events if e.name() in rec["spans"]]
+
+
+def test_profiler_trace_holds_spans_and_kernels_on_the_card(cuda, tmp_path):
+    """profiler_trace writes one Chrome trace with the program's spans,
+    the kernels and the CUDA calls that launched them; K1's launch lies
+    inside the `match` span."""
+    import json
+
+    from dagsfm_tpu_torch.utils import observability as obs
+    fp, pairs = _planted_pipeline(cuda)
+    fp.match_and_verify(pairs)
+    with obs.profiler_trace(str(tmp_path)):
+        fp.match_and_verify(pairs)
+    ev = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    spans = {e["name"]: e for e in ev if e.get("cat") == "user_annotation"}
+    assert {"verify.job", "match", "verify", "verify.pack", "verify.sample",
+            "verify.ransac.E", "verify.ransac.F", "verify.ransac.H",
+            "verify.pose", "verify.read", "verify.select"} <= set(spans)
+    corr = {e["args"]["correlation"] for e in ev if e.get("cat") == "kernel"
+            and "match_tiles" in e["name"]}
+    launches = [e for e in ev if e.get("cat") == "cuda_runtime"
+                and e.get("args", {}).get("correlation") in corr]
+    m = spans["match"]
+    assert corr and len(launches) == len(corr)
+    for e in launches:
+        assert m["ts"] <= e["ts"] and e["ts"] + e["dur"] <= m["ts"] + m["dur"]

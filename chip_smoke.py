@@ -19,7 +19,10 @@ any error:
      events (device time, the launches queued behind a spin kernel)
      beside its bound and one PyTorch call, K1 also at the pixel path's
      shape (B = 128, K = 3,712) and the tools path's (B = 128, K = 512)
-     and K3 at 3,712 x 3,712;
+     and K3 at 3,712 x 3,712; then verification's minimal_nullspace
+     (5-, 7- and 8-row systems, 16,384 a call) against its plain
+     version in float64 and float32, timed beside its bound, the plain
+     version and torch.linalg.qr (its launches are the planted path's);
   4. the tool path: dagsfm_tpu_torch.tools.matcher_mfu (K4's four modes
      and K1 at B = 256, K = 1024);
   5. the pixel path, cut to 12 images (66 pairs), the number of
@@ -521,8 +524,9 @@ def _counts() -> dict:
 
 def _zero_counts() -> None:
     from dagsfm_tpu_torch.ops import matcher_kernel as mk
+    from dagsfm_tpu_torch.ops import nullspace_kernel as nk
     from dagsfm_tpu_torch.ops import top2_matcher as tm
-    mk.launches = 0
+    mk.launches = nk.launches = 0
     tm.top2_batch_launches = tm.top2_launches = tm.mfu_launches = 0
 
 
@@ -789,6 +793,63 @@ def _time_k3(tm, dev, card: str, K: int):
     return ms, plain_ms, bound, lib_ms
 
 
+NULLSPACE_SYSTEMS = 16384   # one batch of 64 pairs x 256 hypotheses
+PEAK_F64_FLOPS = 34e12      # H100 SXM float64 outside the tensor cores
+
+
+def nullspace_flops(r: int) -> float:
+    """Operations of one r x 9 system in the minimal-nullspace kernel:
+    dgeqr2's norms, scalings and reflections, then dorg2r's reflections
+    of the 9 - r unit columns."""
+    qr = sum(3 * (8 - j) + (r - 1 - j) * (4 * (8 - j) + 2) for j in range(r))
+    return qr + (9 - r) * sum(4 * (8 - j) + 2 for j in range(r))
+
+
+def nullspace_phase(dev, card: str) -> dict:
+    """The minimal-nullspace kernel against its plain version at the
+    verification batch's 16,384 systems per r (float64 to 1e-12, float32
+    to 1e-4; two launches equal to the bit), then timed per r beside its
+    bound, the plain version and torch.linalg.qr's complete QR (what
+    `_nullspace_k` called before). Returns the kernels-line entry."""
+    from dagsfm_tpu_torch.ops import nullspace_kernel as nk
+    from dagsfm_tpu_torch.tools.matcher_mfu import time_ms
+    print("== kernel phase: minimal_nullspace vs plain version (float64 to "
+          "1e-12, float32 to 1e-4; two launches equal)", flush=True)
+    S = NULLSPACE_SYSTEMS
+    err, by_r = 0.0, {}
+    for r in nk.ROWS:
+        rng = np.random.default_rng(r)
+        A64 = torch.as_tensor(rng.normal(size=(S, r, 9)), device=dev)
+        for A, tol in ((A64, 1e-12), (A64.float(), 1e-4)):
+            N = nk.minimal_nullspace(A)
+            again = nk.minimal_nullspace(A)
+            gap = float((N - nk.minimal_nullspace_reference(A)).abs().max())
+            print(f"  r={r} {A.dtype}: max |N - plain| {gap:.3g}", flush=True)
+            if gap > tol or not torch.equal(N, again):
+                raise AssertionError(f"minimal_nullspace r={r} {A.dtype} "
+                                     "disagrees with its plain version")
+            if A.dtype == torch.float64:
+                err = max(err, gap)
+        ms = time_ms(lambda: nk.minimal_nullspace(A64))
+        plain_ms = time_ms(lambda: nk.minimal_nullspace_reference(A64), 3)
+        lib_ms = time_ms(lambda: torch.linalg.qr(A64.mT, mode="complete"), 3)
+        bound = _bound(S * nullspace_flops(r), S * 8 * 81, PEAK_F64_FLOPS)
+        by_r[r] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound[0], bound_by=bound[1])
+        print(f"  minimal_nullspace r={r} S={S} float64 on {card}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg.qr "
+              f"complete {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})", flush=True)
+        del A64
+    e = by_r[5]
+    return _entry("minimal_nullspace",
+                  "dagsfm_tpu_torch/csrc/minimal_nullspace.cu",
+                  "none (XLA's jnp.linalg.qr, dagsfm_tpu/ops/epipolar.py:65)",
+                  err, e["ms"], e["plain_ms"],
+                  (e["bound_ms"], e["bound_by"]), e["library_ms"],
+                  by_r={str(r): v for r, v in by_r.items()})
+
+
 def tool_path(card: str) -> dict:
     """The port of tools/matcher_mfu.py as a user runs it; returns the
     launch counts of its run."""
@@ -968,7 +1029,9 @@ def main_path(dev, card: str, num_images: int,
     print(f"  pairs {n_pairs}, matcher batches {n_batches}; verified pairs "
           f"{len(fp.two_view)}", flush=True)
     err, t_model = _write_and_gate(rec, sc, num_images, 0.05, 0.2)
+    from dagsfm_tpu_torch.ops import nullspace_kernel as nk
     counts = _counts()                                # counts read
+    counts["minimal_nullspace"] = nk.launches
     launches = counts["fused_matcher"]
     tm = fp.timings
     print(f"  kernel launches {launches}; on {card}: matching "
@@ -984,6 +1047,8 @@ def main_path(dev, card: str, num_images: int,
     if launches != n_batches:
         raise AssertionError(f"matcher launches {launches} != batches "
                              f"{n_batches}")
+    if not counts["minimal_nullspace"]:
+        raise AssertionError("verification launched no minimal_nullspace")
     return counts
 
 
@@ -3797,7 +3862,8 @@ def main() -> int:
     print(f"== card: {card}; torch device {torch.cuda.get_device_name(0)}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    cuda_build.load("fused_matcher", "top2_matcher")  # both nvcc at once
+    cuda_build.load("fused_matcher", "top2_matcher",
+                    "minimal_nullspace")              # every nvcc at once
     mk.load_library()
     tm.load_library()
     print(f"== build: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -3828,6 +3894,7 @@ def _run(args, dev, card: str, mk, tm, t_start: float, work: str) -> int:
 
     k1 = kernel_phase(mk, dev, card)
     k2, k4, k3 = top2_phase(tm, dev, card)
+    k5 = nullspace_phase(dev, card)
     lap("kernel phases")
     tool = tool_path(card)
     lap("tool")
@@ -3906,8 +3973,10 @@ def _run(args, dev, card: str, mk, tm, t_start: float, work: str) -> int:
     for path in ("retrieval", "photos", "tools"):
         if not paths[path]["fused_matcher"]:
             raise AssertionError(f"K1 never launched on the {path} path")
+    k5["launches"] = planted["minimal_nullspace"]
+    k5["launches_by_path"] = {"planted": k5["launches"]}
     print(f"== whole run {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

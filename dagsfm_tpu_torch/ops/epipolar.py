@@ -14,6 +14,7 @@ import math
 import numpy as np
 import torch
 
+from dagsfm_tpu_torch.ops import nullspace_kernel as nk
 from dagsfm_tpu_torch.ops import polynomials as poly
 from dagsfm_tpu_torch.ops import solve as lin
 
@@ -33,11 +34,14 @@ def _smallest_eigvec(AtA: torch.Tensor) -> torch.Tensor:
 
 
 def _nullspace_k(A: torch.Tensor, k: int) -> torch.Tensor:
-    """k-dim nullspace basis of A (..., rows, 9): complete QR of Aᵀ for
-    exact minimal systems, else the k smallest eigenvectors of AᵀA."""
-    if A.shape[-2] + k == A.shape[-1]:
-        Q, _ = torch.linalg.qr(A.transpose(-1, -2), mode="complete")
-        return Q[..., A.shape[-2]:]
+    """k-dim nullspace basis of A (..., rows, 9): the last k columns of Q
+    in the complete QR of Aᵀ for exact minimal systems (one launch of
+    ops/nullspace_kernel on the card), else the k smallest eigenvectors
+    of AᵀA."""
+    r = A.shape[-2]
+    if r + k == A.shape[-1]:
+        N = nk.minimal_nullspace(A.reshape(-1, r, A.shape[-1]).contiguous())
+        return N.reshape(A.shape[:-2] + N.shape[-2:])
     _, V = torch.linalg.eigh(A.transpose(-1, -2) @ A)
     return V[..., :, :k]
 
@@ -160,6 +164,15 @@ def essential_5pt(x1: torch.Tensor, x2: torch.Tensor, max_solutions: int = 10):
     norm = torch.linalg.norm(Emods.flatten(-2), dim=-1)
     Emods = Emods / torch.clamp(norm, min=1e-12)[..., None, None]
     return Emods, valid
+
+
+def nearest_essential(E: torch.Tensor) -> torch.Tensor:
+    """The essential matrix nearest each E (..., 3, 3), at unit norm:
+    U diag(1, 1, 0) Vᵀ / √2 from E's SVD. A non-finite E stays NaN."""
+    ok = torch.isfinite(E).all(-1).all(-1)[..., None, None]
+    U, _, Vh = torch.linalg.svd(torch.where(ok, E, 0.0))
+    keep = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
+    return torch.where(ok, (U * keep) @ Vh * math.sqrt(0.5), torch.nan)
 
 
 def _hartley_normalize(pts: torch.Tensor, mask=None):

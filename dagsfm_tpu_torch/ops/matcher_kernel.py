@@ -32,8 +32,10 @@ launches = 0          # kernel launches (one per fused_match_j on a GPU)
 
 
 def load_library():
-    """Build (when the source hash changed) and load the kernel library."""
-    lib = cuda_build.load("fused_matcher")["fused_matcher"]
+    """Build (when the source hash changed) and load the kernel library,
+    and verification's nullspace kernel beside it: both nvcc at once."""
+    lib = cuda_build.load("fused_matcher",
+                          "minimal_nullspace")["fused_matcher"]
     cuda_build.set_signature(lib.fused_match_j_launch, 4,
                              [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                               ctypes.c_float, ctypes.c_int], 6)

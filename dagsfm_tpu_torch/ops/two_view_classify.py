@@ -80,11 +80,23 @@ def _sampson(models, a, b):
 
 def ransac_essential(x1, x2, mask, thr, sample_idx):
     """5-point LO-RANSAC for a batch of pairs: x1, x2 (B, N, 2), mask
-    (B, N), thr (B,) squared Sampson threshold, sample_idx (B, H, 5)."""
-    return rnsc.ransac(
+    (B, N), thr (B,) squared Sampson threshold, sample_idx (B, H, 5).
+
+    The winning model is then moved to its nearest essential matrix and
+    its inliers, count and score are taken from that: a 5-point solution
+    lies off the essential matrices, by up to a few %, where the
+    solver's elimination or back-substitution is ill-conditioned."""
+    res = rnsc.ransac(
         solver=epi.essential_5pt, residual_fn=_sampson, data=(x1, x2),
         mask=mask, sample_idx=sample_idx, threshold=thr,
         refit=lambda a, b, inl: epi.essential_8pt(a, b, mask=inl)[0][:, 0])
+    E = epi.nearest_essential(res.model)
+    r = _sampson(E[:, None], x1, x2)[:, 0]
+    thr = torch.as_tensor(thr, dtype=r.dtype, device=r.device).reshape(-1, 1)
+    inliers = (r < thr) & mask
+    return res._replace(
+        model=E, inliers=inliers, num_inliers=inliers.sum(-1),
+        score=torch.where(mask, torch.minimum(r, thr), 0.0).sum(-1))
 
 
 def ransac_fundamental(p1, p2, mask, thr, sample_idx):

@@ -16,7 +16,7 @@ hypotheses). It times, each as a mean over 3 calls after a warm-up:
     from `draw_samples` (device ms from CUDA events on the card);
   * `draw_samples` itself, and the 5-point solver's nullspace alone
     (`epipolar._nullspace_k` on the E samples' 5 x 9 systems, one
-    complete QR each);
+    launch of ops/nullspace_kernel on the card);
   * the host `_select_model` loop over the batch's fetched results;
   * `_efh_batched` with the fetch of its 14 outputs (host clock).
 

@@ -43,7 +43,7 @@ import time
 
 import torch
 
-MAX_ROOTS = 64
+MAX_ROOTS = 512          # a window of a few hundred jobs or solves
 
 _on = True
 _local = threading.local()

@@ -170,7 +170,7 @@ def test_duplicates_are_flagged_and_masked_lines_are_not():
 
 def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
     """Editing a header in csrc/ changes the library path of every source
-    (so both kernel libraries are rebuilt); editing one source changes
+    (so every kernel library is rebuilt); editing one source changes
     only its own."""
     src = tmp_path / "csrc"
     src.mkdir()
@@ -179,7 +179,7 @@ def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
             (src / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(cuda_build, "CSRC", src)
     names = sorted(f.stem for f in src.glob("*.cu"))
-    assert names == ["fused_matcher", "top2_matcher"]
+    assert names == ["fused_matcher", "minimal_nullspace", "top2_matcher"]
     before = {n: cuda_build._so_path(n) for n in names}
     header = src / "matcher_tiles.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -190,6 +190,7 @@ def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
         (src / "top2_matcher.cu").read_text() + "\n// edited\n")
     again = {n: cuda_build._so_path(n) for n in names}
     assert again["fused_matcher"] == after["fused_matcher"]
+    assert again["minimal_nullspace"] == after["minimal_nullspace"]
     assert again["top2_matcher"] != after["top2_matcher"]
 
 

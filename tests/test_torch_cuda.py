@@ -17,8 +17,10 @@ between two runs), the Gabor embedding and VLAD, and SIFT with
 domain-size pooling and affine shape agree with the CPU port; the
 1000-image tool (tools/e2e_1000) at 20 images repeats bit for bit; the
 program's spans are on the profiler's clock (K1's launch inside the
-`match` span) and profiler_trace writes them beside the kernels. Every
-test here needs a CUDA card and skips without one.
+`match` span) and profiler_trace writes them beside the kernels; the
+minimal-nullspace kernel equals its plain version, launches once per
+estimator in a verification batch, and leaves no cuSOLVER QR kernel in
+its trace. Every test here needs a CUDA card and skips without one.
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -583,6 +585,41 @@ def test_verify_pairs_on_the_card_equals_the_cpu(cuda):
         np.testing.assert_allclose(gt, t, rtol=1e-9, atol=1e-9)
         assert (gn, gf, gv) == (n, nf, valid) and valid
         np.testing.assert_array_equal(ginl, inl)
+
+
+@pytest.mark.parametrize("r", [5, 7, 8])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-4)])
+def test_nullspace_kernel_equals_plain_version(cuda, r, dtype, tol):
+    """The minimal-nullspace kernel at the cell's 16,384 systems per call
+    (and a ragged 1,000), one launch a call, against the plain version on
+    the card; a zero row (tau = 0) stays finite and orthonormal."""
+    from dagsfm_tpu_torch.ops import nullspace_kernel as nk
+    rng = np.random.default_rng(r)
+    for S in (16384, 1000):
+        A = rng.normal(size=(S, r, 9))
+        A[: S // 8, r // 2] = 0.0
+        A = torch.as_tensor(A, dtype=dtype, device=cuda)
+        before = nk.launches
+        N = nk.minimal_nullspace(A)
+        torch.cuda.synchronize()
+        assert nk.launches == before + 1
+        assert N.shape == (S, 9, 9 - r) and N.dtype == dtype
+        ref = nk.minimal_nullspace_reference(A)
+        assert float((N - ref).abs().max()) <= tol
+        assert bool(torch.isfinite(N).all())
+        eye = torch.eye(9 - r, dtype=dtype, device=cuda)
+        assert float((N.mT @ N - eye).abs().max()) <= 10 * tol
+
+
+def test_nullspace_kernel_refuses_what_it_does_not_take(cuda):
+    from dagsfm_tpu_torch.ops import nullspace_kernel as nk
+    A = torch.zeros((16, 5, 9), dtype=torch.float64, device=cuda)
+    for bad in (torch.zeros((16, 6, 3), dtype=torch.float64, device=cuda),
+                torch.zeros((16, 6, 9), dtype=torch.float64, device=cuda),
+                A.to(torch.float16), A.mT.contiguous().mT):
+        with pytest.raises(ValueError):
+            nk.minimal_nullspace(bad)
 
 
 def test_mapper_controller_repeats_bit_for_bit_on_the_card(cuda):
@@ -1340,3 +1377,77 @@ def test_profiler_trace_holds_spans_and_kernels_on_the_card(cuda, tmp_path):
     assert corr and len(launches) == len(corr)
     for e in launches:
         assert m["ts"] <= e["ts"] and e["ts"] + e["dur"] <= m["ts"] + m["dur"]
+
+
+# ------------------------------------------ the minimal-nullspace kernel
+# The profiled test below comes after the span tests: profiled earlier
+# in the file, it left their later CUDA-only traces without a kernel on
+# the H100 (each passed alone and right after it).
+
+
+def _pixel_rows(n_pairs: int, n: int, seed: int):
+    """classify_pairs rows: n_pairs general two-view scenes of n pixel
+    correspondences at f = 800, 30 % outliers."""
+    from dagsfm_tpu_torch.ops import rotations as t_rops
+    rng = np.random.default_rng(seed)
+    K = np.array([[800.0, 0, 512], [0, 800.0, 384], [0, 0, 1]])
+    rows = []
+    for k in range(n_pairs):
+        X = rng.uniform(-2, 2, (n, 3)) + [0, 0, 8]
+        R = t_rops.angleaxis_to_rotmat(
+            torch.as_tensor(rng.normal(size=3) * 0.1)).numpy()
+        X2 = X @ R.T + np.array([1.0, 0.2, 0.1])
+        p1 = X[:, :2] / X[:, 2:] * 800 + [512, 384]
+        p2 = X2[:, :2] / X2[:, 2:] * 800 + [512, 384]
+        p2 = p2 + rng.normal(size=(n, 2)) * 0.5
+        bad = rng.random(n) < 0.3
+        p2[bad] = rng.uniform([0, 0], [1024, 768], (bad.sum(), 2))
+        rows.append(((k, k + 1), p1, p2, K, K, (1024, 768), (1024, 768),
+                     True))
+    return rows
+
+
+def test_verification_batch_runs_the_nullspace_kernel_alone(cuda,
+                                                            monkeypatch):
+    """A 64-pair classify_pairs batch at 1,024 matches under a root: one
+    kernel launch per estimator, 64 x 256 x 3 systems counted, a trace
+    of the card that holds no orgqr or larft kernel and fewer cuSOLVER
+    helper kernels (lacpy, batch_eye, copy_info) than pairs (the batch's
+    few eigh and svd calls launch some; the library's QR launched them
+    per system), and the same answers as with the library's complete QR
+    in the kernel's place."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dagsfm_tpu_torch.ops import epipolar as epi
+    from dagsfm_tpu_torch.ops import nullspace_kernel as nk
+    from dagsfm_tpu_torch.ops import two_view_classify as tvc
+    from dagsfm_tpu_torch.utils import observability as obs
+    rows = _pixel_rows(64, 1024, seed=3)
+    opts = tvc.TwoViewOptions()
+    tvc.classify_pairs(rows, opts, seed=0, device=cuda)      # built, warm
+    before = nk.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with obs.span("verify.job"):
+            out = tvc.classify_pairs(rows, opts, seed=0, device=cuda)
+        torch.cuda.synchronize()
+    assert nk.launches == before + 3
+    assert obs.roots()[-1]["counters"]["nullspace_systems"] == 64 * 256 * 3
+    kernel_nullspace = epi._nullspace_k
+
+    def library_nullspace(A, k):
+        if A.shape[-2] + k != A.shape[-1]:
+            return kernel_nullspace(A, k)
+        return torch.linalg.qr(A.mT, mode="complete")[0][..., A.shape[-2]:]
+
+    monkeypatch.setattr(epi, "_nullspace_k", library_nullspace)
+    lib = tvc.classify_pairs(rows, opts, seed=0, device=cuda)
+    assert nk.launches == before + 3 and lib.keys() == out.keys()
+    for pk, a in out.items():
+        b = lib[pk]
+        assert (a.config, a.num_inliers) == (b.config, b.num_inliers), pk
+        np.testing.assert_array_equal(a.inlier_mask, b.inlier_mask)
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert any("minimal_nullspace" in k for k in counts)
+    assert not [k for k in counts if "orgqr" in k or "larft" in k]
+    assert sum(n for k, n in counts.items() if any(
+        w in k for w in ("lacpy", "batch_eye", "copy_info"))) < 64

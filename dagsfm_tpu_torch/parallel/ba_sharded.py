@@ -17,7 +17,8 @@ blocks and makes one `all_reduce` where the reference makes one `psum`:
     after them;
   * the cost: one scalar per evaluation.
 The reduced camera system is solved on every rank alike, so every rank
-takes the same LM decisions.
+takes the same LM decisions. On cards the group is NCCL's, one rank a
+card (`mesh.init_ranks`), and every tensor of a rank lives on its card.
 
 The solver's rules are the reference's sharded solver's, not those of
 `sfm.bundle_adjustment.solve`: tracks longer than max_track_len are
@@ -44,6 +45,7 @@ from dagsfm_tpu_torch.parallel.mesh import (all_reduce, all_reduce_many,
                                             own_shards, partition_balanced)
 from dagsfm_tpu_torch.scene import cameras as cm
 from dagsfm_tpu_torch.sfm import bundle_adjustment as ba
+from dagsfm_tpu_torch.utils import observability as obs
 
 
 class ShardedBAProblem(NamedTuple):
@@ -92,7 +94,10 @@ def shard_arrays(arrays: dict, num_devices: int,
     tlen = np.bincount(op[om], minlength=P_)
     assign = partition_balanced(np.maximum(tlen, 1), num_devices)
     shard_pts = [np.nonzero(assign == d)[0] for d in range(num_devices)]
-    obs_by_shard = [np.nonzero(np.isin(op, s) & om)[0] for s in shard_pts]
+    obs_shard = np.full(len(op), -1)
+    obs_shard[om] = assign[op[om]]
+    obs_by_shard = [np.nonzero(obs_shard == d)[0]
+                    for d in range(num_devices)]
     Pd = _bucket(max(len(s) for s in shard_pts), 8)
     Nd = _bucket(max(len(s) for s in obs_by_shard), 64)
 
@@ -226,8 +231,9 @@ def _local_problem(prob: ShardedBAProblem, shards: list) -> ba.BAProblem:
 
 def _cost(local: ba.BAProblem, opts: ba.BAOptions) -> float:
     """Cauchy cost of scale loss_scale, summed over every rank."""
-    c = ba._plain_cost(local, opts._replace(loss="cauchy"))
-    return float(all_reduce(c.reshape(1))[0])
+    with obs.span("ba.sharded.cost"):
+        c = ba._plain_cost(local, opts._replace(loss="cauchy"))
+        return obs.host_read(all_reduce(c.reshape(1))[0], float)
 
 
 def _solve_dense(local: ba.BAProblem, pairs: ba.Pairs, r_w, Jc_w, Jp_w,
@@ -269,7 +275,18 @@ def solve_sharded(prob: ShardedBAProblem,
     """LM with the sharded Schur step on the process group (every rank
     calls it with the same problem). Returns (the problem with its
     poses, cameras and every shard's points updated on every rank,
-    BAStats)."""
+    BAStats). One root span, `ba.sharded.solve`, counting its
+    `lm_steps` and `cg_iterations` (and, in `parallel.mesh`, its
+    collectives); inside it `ba.sharded.local` (the rank's local
+    problem), `ba.sharded.cost` and each step's `ba.pcg`."""
+    with obs.span("ba.sharded.solve"):
+        out, stats = _solve_sharded(prob, opts)
+        obs.count("lm_steps", stats.num_iterations)
+        obs.count("cg_iterations", stats.cg_iterations)
+    return out, stats
+
+
+def _solve_sharded(prob: ShardedBAProblem, opts: ba.BAOptions) -> tuple:
     I = prob.image_qvec.shape[0]
     refine = ba._refine_any(opts)
     solver = opts.solver
@@ -281,7 +298,8 @@ def solve_sharded(prob: ShardedBAProblem,
         solver = "iterative"     # the joint system is matrix-free only
     D, Pd = prob.points.shape[:2]
     shards = own_shards(D)
-    local = _local_problem(prob, shards)
+    with obs.span("ba.sharded.local"):
+        local = _local_problem(prob, shards)
     pairs = ba._pairs(local, False) if solver == "dense" else None
     dt = local.obs_xy.dtype
     camfree = (~local.const_image).to(dt)[local.obs_image][:, None, None]

@@ -8,8 +8,17 @@ to rel 1e-9 (float64; psum and all_reduce add in other orders): on one
 rank, and on four gloo ranks, spawned once for the module, which run
 every case. The port's twins of tests/test_ba_sharded.py hold the solver
 to the same limits as the reference's.
+
+The same solves, on one rank and on the four gloo ranks, against the
+benchmark's plain blocked reference of the sharded rule
+(sfmbench/reference/ba_blocked.py): the observations kept, the cost of
+what a solve returns, and (iterative and joint) the share of the start's
+cost it removes against the reference's run of the rule, within the
+limits of the cell `ba.final13682x4`; the collectives each solve counts.
 """
+import json
 import multiprocessing as mp
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,9 +41,13 @@ from dagsfm_tpu_torch.parallel import ba_sharded as t_bs
 from dagsfm_tpu_torch.parallel import matching_sharded as t_ms
 from dagsfm_tpu_torch.scene import synthetic as t_syn
 from dagsfm_tpu_torch.sfm import bundle_adjustment as t_ba
+from sfmbench.reference import ba_blocked
 
 torch.set_num_threads(1)
 RTOL = 1e-9
+LIMITS = json.loads((Path(__file__).resolve().parents[1] / "sfmbench" /
+                     "traffic" / "sharded_start_pool2.json").read_text())[
+                         "limits"]
 
 
 def perturbed_arrays(seed=3, pixel_noise=0.5):
@@ -399,3 +412,188 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
     descs, masks, pairs = match_problem()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_ms.match_pairs_sharded(descs, masks, pairs)
+
+
+# --- against the benchmark's blocked reference of the sharded rule -----
+
+
+def _blocked(arrays, refine, block=ba_blocked.BLOCK):
+    """The reference's observations of a scene (its live ones, in their
+    order) and the start's solution."""
+    a = {k: torch.as_tensor(np.asarray(v)) for k, v in
+         arrays._asdict().items()}
+    live = torch.nonzero(a["obs_mask"].bool())[:, 0]
+    obs = ba_blocked.prepare(a["obs_image"][live], a["obs_point"][live],
+                             a["obs_xy"][live], a["image_camidx"],
+                             a["points_xyz"].shape[0], 16, block=block)
+    sol = ba_blocked.solution(a["image_qvec"], a["image_tvec"],
+                              a["cam_params"], a["points_xyz"],
+                              a["image_camidx"])
+    free = torch.zeros((a["cam_params"].shape[0], 3), dtype=torch.float64) \
+        if refine is None else torch.as_tensor(np.asarray(refine))[:, [0, 4,
+                                                                      5]]
+    held = torch.zeros(a["image_qvec"].shape[0], dtype=torch.bool)
+    held[:2] = True
+    return a, live, obs, sol, held, free
+
+
+def _blocked_numbers(arrays, refine, opts, fields, shard_pts, result):
+    """The check's numbers of a sharded solve (result: qvec, tvec,
+    cam_params, gathered points, [initial, final] cost): its kept
+    observations against the reference's, the cost gap, and for the
+    iterative rule the descent gap."""
+    a, live, obs, sol0, held, free = _blocked(arrays, refine)
+    # kept (image, point) pairs: the program's shards against the rule
+    om = np.asarray(fields["obs_mask"])
+    prog = {(int(i), int(shard_pts[d][p]))
+            for d in range(om.shape[0])
+            for i, p in zip(np.asarray(fields["obs_image"])[d][om[d]],
+                            np.asarray(fields["obs_point"])[d][om[d]])}
+    want = {(int(i), int(p)) for i, p in zip(obs["image"], obs["point"])}
+    assert prog == want and len(want) == int(obs["kept"].sum())
+    qvec, tvec, cams, points, cost = (torch.as_tensor(np.asarray(x))
+                                      for x in result)
+    c = float(ba_blocked.cost(ba_blocked.solution(
+        qvec, tvec, cams, points, a["image_camidx"]), obs,
+        opts.get("loss_scale", 1.0)))
+    out = dict(cost_gap=abs(float(cost[1]) - c) / c)
+    if opts.get("solver") != "dense":
+        o = t_ba.BAOptions(**opts)
+        _, c0, c1, _ = ba_blocked.lm(
+            sol0, obs, held, free, o.max_iterations, o.loss_scale,
+            o.linear_rtol, o.max_linear_iterations, o.init_lambda,
+            o.point_damping)
+        removed = (float(cost[0]) - float(cost[1])) / float(cost[0])
+        out["descent_gap"] = abs(removed - (c0 - c1) / c0) / \
+            ((c0 - c1) / c0)
+    return out
+
+
+def _assert_within_limits(found):
+    for name, value in found.items():
+        assert value <= LIMITS[name], (name, value)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_solve_sharded_equals_blocked_reference_on_one_rank(scenes, case):
+    scene, D, opts = CASES[case]
+    arrays, refine = scenes[scene]
+    prob, shard_pts = t_bs.shard_problem(port_arrays(arrays), D,
+                                         cam_refine=refine, device="cpu")
+    got, _ = _port_solve(prob, shard_pts, arrays.points_xyz.shape[0], opts)
+    fields = {k: v.numpy() for k, v in prob._asdict().items()}
+    found = _blocked_numbers(arrays, refine, opts, fields, shard_pts, got)
+    assert found["cost_gap"] <= 1e-12
+    _assert_within_limits(found)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if CASES[c][1] == 8])
+def test_solve_sharded_equals_blocked_reference_on_four_gloo_ranks(
+        scenes, reference, four_gloo_ranks, case):
+    scene, _, opts = CASES[case]
+    arrays, refine = scenes[scene]
+    fields, shard_pts, _ = reference[case]
+    for out in four_gloo_ranks:
+        got = tuple(out[f"{case}.{k}"] for k in ("qvec", "tvec",
+                                                  "cam_params", "points",
+                                                  "cost"))
+        found = _blocked_numbers(arrays, refine, opts, fields, shard_pts,
+                                 got)
+        assert found["cost_gap"] <= 1e-12
+        _assert_within_limits(found)
+        # one collective for each cost (the start's and each trial's),
+        # one per LM step for its blocks, one per CG iteration, one for
+        # the points at the end
+        steps = opts["max_iterations"]
+        assert int(out[f"{case}.lm_steps"]) == steps
+        assert int(out[f"{case}.allreduce"]) == \
+            2 + 2 * steps + int(out[f"{case}.cg_iterations"])
+        assert int(out[f"{case}.allreduce_bytes"]) > 0
+
+
+@pytest.mark.parametrize("block", [1, 7, 64])
+def test_blocked_reference_is_the_same_for_any_block_size(scenes, block):
+    arrays, refine = scenes["radial"]
+    _, _, whole, sol, held, free = _blocked(arrays, refine)
+    _, _, blocks, _, _, _ = _blocked(arrays, refine, block)
+    a, b = float(ba_blocked.cost(sol, whole, 2.0)), \
+        float(ba_blocked.cost(sol, blocks, 2.0))
+    assert abs(a - b) <= 1e-12 * a
+    ra = ba_blocked.lm(sol, whole, held, free, 2, 2.0)
+    rb = ba_blocked.lm(sol, blocks, held, free, 2, 2.0)
+    assert ra[3] == rb[3]
+    np.testing.assert_allclose(ra[2], rb[2], rtol=1e-9)
+    np.testing.assert_allclose(ra[0]["points"].numpy(),
+                               rb[0]["points"].numpy(), rtol=1e-7,
+                               atol=1e-9)
+
+
+def test_blocked_reference_decimates_uniformly():
+    """A track of 40 keeps 16 observations spread along it, at the
+    positions where (p 16) // 40 steps; shorter tracks keep all."""
+    op = torch.cat([torch.zeros(40, dtype=torch.long),
+                    torch.ones(16, dtype=torch.long),
+                    torch.full((3,), 2, dtype=torch.long)])
+    op = op[torch.randperm(len(op), generator=torch.Generator()
+                           .manual_seed(0))]
+    keep = ba_blocked.kept(op, 3, 16)
+    pos = torch.cumsum((op == 0).long(), 0) - 1
+    want = (op != 0) | ((pos * 16) // 40 != ((pos + 1) * 16) // 40)
+    assert torch.equal(keep, want) and int(keep[op == 0].sum()) == 16
+
+
+def test_partition_balanced_equals_the_greedy_loop():
+    """The heap's partition is the plain greedy loop's: each item, largest
+    first, to the first of the least loaded bins."""
+    from dagsfm_tpu_torch.parallel.mesh import partition_balanced
+
+    def loop(sizes, num_bins):
+        loads = np.zeros(num_bins)
+        assign = np.zeros(len(sizes), np.int32)
+        for i in np.argsort(-np.asarray(sizes)):
+            b = int(np.argmin(loads))
+            assign[i] = b
+            loads[b] += sizes[i]
+        return assign
+
+    rng = np.random.default_rng(0)
+    for n, bins in ((2000, 4), (333, 8), (50, 3), (7, 1), (0, 4)):
+        for sizes in (rng.geometric(0.3, n), rng.random(n) * 10,
+                      np.ones(n, int)):
+            np.testing.assert_array_equal(partition_balanced(sizes, bins),
+                                          loop(sizes, bins))
+
+
+def test_init_ranks_on_the_cpu(monkeypatch):
+    """One rank on the CPU: gloo, the CPU, from an explicit address and,
+    as under torchrun, from the environment."""
+    import socket
+
+    import torch.distributed as tdist
+
+    from dagsfm_tpu_torch.parallel import mesh
+
+    def port():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for env in (False, True):
+        if env:
+            for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                         ("MASTER_ADDR", "localhost"),
+                         ("MASTER_PORT", str(port()))):
+                monkeypatch.setenv(k, v)
+            dev = mesh.init_ranks(timeout_s=30)
+        else:
+            dev = mesh.init_ranks(0, 1, f"tcp://localhost:{port()}",
+                                  timeout_s=30)
+        try:
+            assert dev == torch.device("cpu")
+            assert tdist.get_backend() == "gloo"
+            assert mesh.process_group()[1:] == (0, 1)
+            x = torch.ones(3, dtype=torch.float64)
+            assert torch.equal(mesh.all_reduce(x), torch.ones(3))
+        finally:
+            tdist.destroy_process_group()

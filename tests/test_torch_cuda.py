@@ -20,7 +20,9 @@ program's spans are on the profiler's clock (K1's launch inside the
 `match` span) and profiler_trace writes them beside the kernels; the
 minimal-nullspace kernel equals its plain version, launches once per
 estimator in a verification batch, and leaves no cuSOLVER QR kernel in
-its trace. Every test here needs a CUDA card and skips without one.
+its trace; the sharded BA over NCCL on four ranks, one card each, holds
+the same bits on every rank and the CPU's result (skips below four
+cards). Every test here needs a CUDA card and skips without one.
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -765,6 +767,58 @@ def test_sharded_ba_eight_shards_equal_one_on_the_card(cuda, solver):
         for a, b in zip(other, runs[0]):
             np.testing.assert_allclose(a, b, rtol=1e-9,
                                        atol=1e-9 * np.abs(b).max())
+
+
+@pytest.fixture
+def four_cards(cuda):
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards: one NCCL rank a card")
+    return 4
+
+
+def test_sharded_ba_over_nccl_on_four_cards(four_cards, tmp_path):
+    """solve_sharded with the intrinsics (joint PCG, D = 8) on four NCCL
+    ranks, one card each (parallel.mesh.init_ranks): every rank on its
+    own card holds the same result to the bit, equal to one process on
+    the CPU to rel 1e-9; the ranks reduce over NCCL, 2 + 2 x 4 + the CG
+    iterations times."""
+    import multiprocessing as mp
+    import socket
+
+    import torch_ranks
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        address = f"tcp://localhost:{s.getsockname()[1]}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=torch_ranks.nccl_rank,
+                         args=(r, four_cards, address, str(tmp_path)))
+             for r in range(four_cards)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    alive = [p.is_alive() for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert not any(alive)
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz"))
+             for r in range(four_cards)]
+    assert [str(r["device"]) for r in ranks] == [f"cuda:{r}" for r in
+                                                 range(four_cards)]
+    assert all(str(r["backend"]) == "nccl" for r in ranks)
+    for out in ranks[1:]:
+        for k in ("qvec", "tvec", "cam_params", "points", "cost"):
+            np.testing.assert_array_equal(out[k], ranks[0][k], err_msg=k)
+    cpu = torch_ranks.sharded_solve("cpu")
+    for k in ("qvec", "tvec", "cam_params", "points", "cost"):
+        np.testing.assert_allclose(ranks[0][k], cpu[k], rtol=1e-9,
+                                   atol=1e-9 * np.abs(cpu[k]).max(),
+                                   err_msg=k)
+    steps = torch_ranks.SHARDED_OPTIONS["max_iterations"]
+    assert int(ranks[0]["allreduce"]) == 2 + 2 * steps + int(ranks[0]["cg"])
+    assert ranks[0]["cost"][1] < 0.5 * ranks[0]["cost"][0]
 
 
 def test_sharded_rotation_averaging_on_the_card(cuda):

@@ -3,7 +3,8 @@ into root records, host reads counted and timed on the innermost span,
 the bounded deque of finished roots, the `profiled` flag and the span
 stamps on the profiler's clock, `enable(False)`, the benchmark readers'
 window of roots (sfmbench.program_roots), and that spans change no number of verification or
-bundle adjustment."""
+bundle adjustment, the sharded solve's included (its own root beside
+`ba.solve`'s)."""
 import contextlib
 import json
 import time
@@ -396,3 +397,55 @@ def test_spans_change_no_number_of_bundle_adjustment(cg_cap):
                      "ba.pcg": sa.cg_iterations + steps - capped,
                      "ba.evaluate": steps}
     json.dumps(rec)
+
+
+def _sharded_problem():
+    from dagsfm_tpu_torch.parallel import ba_sharded as bs
+    from dagsfm_tpu_torch.scene import cameras as t_cm
+    sc = t_syn.generate(t_syn.SyntheticSceneSpec(
+        num_cameras=8, num_points=120, pixel_noise=0.3, seed=5,
+        camera_model="SIMPLE_RADIAL"))
+    arrays = t_syn.to_scene_arrays(sc, torch.device("cpu"))
+    arrays = arrays._replace(points_xyz=arrays.points_xyz + 0.01 *
+                             torch.as_tensor(np.random.default_rng(5).normal(
+                                 size=arrays.points_xyz.shape)))
+    return bs.shard_problem(arrays, 4, cam_refine=t_cm.intrinsics_refine_mask(
+        [t_cm.SIMPLE_RADIAL], True, False, True), device="cpu")[0]
+
+
+@pytest.mark.parametrize("cg_cap", [100, 2])
+def test_sharded_solve_root_and_ba_solve_roots_unchanged(cg_cap):
+    """solve_sharded is one root, `ba.sharded.solve`, counting its LM
+    steps and CG iterations (no collective without a process group),
+    with the local problem, the costs (one read each) and the steps'
+    `ba.pcg` inside it; spans change none of its numbers; and a
+    `ba.solve` after it keeps its own root, spans and counter."""
+    from dagsfm_tpu_torch.parallel import ba_sharded as bs
+    opts = ba.BAOptions(max_iterations=3, refine_focal=True,
+                        refine_extra=True, max_linear_iterations=cg_cap)
+    runs = []
+    for on in (True, False):
+        obs.enable(on)
+        runs.append(bs.solve_sharded(_sharded_problem(), opts))
+    obs.enable(True)
+    (a, sa), (b, sb) = runs
+    assert sa == sb and torch.equal(a.points, b.points)
+    rec, = obs.roots()
+    steps = opts.max_iterations
+    assert rec["name"] == "ba.sharded.solve"
+    assert rec["counters"] == {"lm_steps": steps,
+                               "cg_iterations": sa.cg_iterations}
+    calls = {k: v["calls"] for k, v in rec["spans"].items()}
+    assert calls == {"ba.sharded.solve": 1, "ba.sharded.local": 1,
+                     "ba.sharded.cost": steps + 1, "ba.pcg": steps}
+    reads = {k: v["reads"] for k, v in rec["spans"].items()}
+    capped = steps if cg_cap == 2 else 0
+    assert reads == {"ba.sharded.solve": 0, "ba.sharded.local": 0,
+                     "ba.sharded.cost": steps + 1,
+                     "ba.pcg": sa.cg_iterations + steps - capped}
+    _, st = ba.solve(_ba_problem(), opts)
+    last = obs.roots()[-1]
+    assert last["name"] == "ba.solve"
+    assert last["counters"] == {"lm_steps": st.num_iterations}
+    assert set(last["spans"]) == {"ba.solve", "ba.linearize",
+                                  "ba.solve_step", "ba.evaluate"}   # dense

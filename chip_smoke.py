@@ -23,6 +23,10 @@ any error:
      (5-, 7- and 8-row systems, 16,384 a call) against its plain
      version in float64 and float32, timed beside its bound, the plain
      version and torch.linalg.qr (its launches are the planted path's);
+     then bundle adjustment's Schur product (schur_matvec, K6) against
+     its plain version at BAL Dubrovnik-356's shape, with and without
+     the intrinsics, timed beside its bound and the plain version (its
+     launches are the BA path's);
   4. the tool path: dagsfm_tpu_torch.tools.matcher_mfu (K4's four modes
      and K1 at B = 256, K = 1024);
   5. the pixel path, cut to 12 images (66 pairs), the number of
@@ -516,17 +520,20 @@ def planted_pairs(B: int, K: int, seed: int, device):
 def _counts() -> dict:
     """Every kernel's launch counter."""
     from dagsfm_tpu_torch.ops import matcher_kernel as mk
+    from dagsfm_tpu_torch.ops import schur_matvec as sxm
     from dagsfm_tpu_torch.ops import top2_matcher as tm
     return {"fused_matcher": mk.launches,
             "top2_batch": tm.top2_batch_launches,
-            "top2": tm.top2_launches, "mfu_variant": tm.mfu_launches}
+            "top2": tm.top2_launches, "mfu_variant": tm.mfu_launches,
+            "schur_matvec": sxm.launches}
 
 
 def _zero_counts() -> None:
     from dagsfm_tpu_torch.ops import matcher_kernel as mk
     from dagsfm_tpu_torch.ops import nullspace_kernel as nk
+    from dagsfm_tpu_torch.ops import schur_matvec as sxm
     from dagsfm_tpu_torch.ops import top2_matcher as tm
-    mk.launches = nk.launches = 0
+    mk.launches = nk.launches = sxm.launches = 0
     tm.top2_batch_launches = tm.top2_launches = tm.mfu_launches = 0
 
 
@@ -848,6 +855,122 @@ def nullspace_phase(dev, card: str) -> dict:
                   err, e["ms"], e["plain_ms"],
                   (e["bound_ms"], e["bound_by"]), e["library_ms"],
                   by_r={str(r): v for r, v in by_r.items()})
+
+
+def schur_case(dev, num_images: int, num_points: int, joint: bool,
+               num_cameras: int = 3, long_image: int = 600,
+               num_obs: int | None = None, seed: int = 0):
+    """A random Schur system of bundle adjustment's PCG (K6's input) and
+    an x on `dev`, float64, on a layout that holds every edge the kernel
+    takes: image 0 sees nothing, images 1 and 2 are pinned, tracks are
+    runs of 2 or more ring neighbours but every seventh point is seen
+    once and every eleventh is held (its W rows zero, as the solver's
+    weights leave them), image 3 makes `long_image` more observations
+    of random points (runs longer than SEGMENT_CHUNK), num_obs in all
+    (5.5 a point by default), camera 0 is shared by every image but the
+    last num_cameras - 1 (a fold longer than a warp; num_cameras =
+    num_images gives one camera each), and with the intrinsics camera
+    0's last three slots are held. Returns (SchurSystem, x)."""
+    from dagsfm_tpu_torch.ops import schur_matvec as sxm
+    from dagsfm_tpu_torch.sfm import bundle_adjustment as ba
+    rng = np.random.default_rng(seed)
+    I, P, C = num_images, num_points, num_cameras
+    size = np.where(np.arange(P) % 7 == 0, 1, 2)
+    extra = (int(5.5 * P) if num_obs is None else num_obs) - long_image \
+        - int(size.sum())
+    more = size == 2
+    size[more] += rng.multinomial(max(extra, 0),
+                                  np.full(int(more.sum()), 1 / more.sum()))
+    size = np.minimum(size, I - 1)
+    first = rng.integers(1, I, P)
+    op = np.repeat(np.arange(P), size)
+    ring = np.arange(len(op)) - np.repeat(np.cumsum(size) - size, size)
+    oi = 1 + (np.repeat(first, size) - 1 + ring) % (I - 1)
+    oi = np.concatenate([oi, np.full(long_image, 3)])
+    op = np.concatenate([op, rng.integers(0, P, long_image)])
+    N = len(oi)
+    camidx = np.zeros(I, np.int64)
+    if C == I:
+        camidx = np.arange(I)
+    elif C > 1:
+        camidx[I - C + 1:] = np.arange(1, C)
+    const = np.zeros(I, bool)
+    const[1:3] = True
+    held = np.zeros(P, bool)
+    held[::11] = True
+    refine = np.ones((C, 8))
+    refine[0, 5:] = 0.0
+    prob = ba.problem_from_observations(
+        np.tile([1.0, 0, 0, 0], (I, 1)), np.zeros((I, 3)), camidx,
+        np.full(C, 2), np.zeros((C, 12)), np.zeros((P, 3)), oi, op,
+        np.zeros((N, 2)), const_image=const, const_points=held,
+        cam_refine=refine, device=dev)
+
+    def normal(*shape):
+        return torch.as_tensor(rng.normal(size=shape), device=dev)
+
+    live = torch.as_tensor(~held[op], device=dev)[:, None, None].double()
+    Wc = normal(N, 6, 3) * live
+    free = (~prob.const_image).double()[:, None]
+    if not joint:
+        return (sxm.system(prob, Wc, None, normal(P, 3, 3), normal(I, 6, 6),
+                           None, None, free, None), (normal(I, 6),))
+    S = sxm.system(prob, Wc, normal(N, 8, 3) * live, normal(P, 3, 3),
+                   normal(I, 6, 6), normal(I, 6, 8), normal(C, 8, 8), free,
+                   (prob.cam_refine > 0).double())
+    return S, (normal(I, 6), normal(C, 8))
+
+
+def schur_phase(dev, card: str) -> dict:
+    """K6, the Schur product of bundle adjustment's PCG, against its
+    plain version at BAL Dubrovnik-356's shape (356 images and cameras,
+    226,730 points, 1,255,268 observations), with and without the
+    intrinsics: within 1e-12 of the largest entry, two launches equal to
+    the bit, and `point_sums` likewise; timed beside its bound (the
+    benchmark's CG bytes at 3.35 TB/s) and the plain version. Returns
+    the kernels-line entry."""
+    from dagsfm_tpu_torch.ops import schur_matvec as sxm
+    from dagsfm_tpu_torch.tools.matcher_mfu import time_ms
+    print("== kernel phase: schur_matvec vs plain version (float64 to 1e-12 "
+          "of the largest entry; two launches equal)", flush=True)
+    I, P, N = 356, 226730, 1255268
+    err, by_g = 0.0, {}
+    for joint in (True, False):
+        S, x = schur_case(dev, I, P, joint, num_cameras=I, num_obs=N)
+        G = 8 if joint else 0
+        got, again = sxm.schur_mv(S, x), sxm.schur_mv(S, x)
+        ref = sxm.schur_mv_reference(S, x)
+        gap = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(got, ref))
+        t = sxm.point_sums(S, *x)
+        t_ref = sxm.point_sums_reference(S, *x)
+        gap = max(gap, float((t - t_ref).abs().max() / t_ref.abs().max()))
+        print(f"  G={G} N={N}: max |S·x - plain| / max |plain| {gap:.3g}",
+              flush=True)
+        if gap > 1e-12 or not all(torch.equal(a, b)
+                                  for a, b in zip(got, again)):
+            raise AssertionError(f"schur_matvec G={G} disagrees with its "
+                                 "plain version")
+        err = max(err, gap)
+        ms = time_ms(lambda: sxm.schur_mv(S, x))
+        plain_ms = time_ms(lambda: sxm.schur_mv_reference(S, x), 5)
+        # the benchmark's CG bytes (sfmbench/counts.py): W, V⁻¹ and the
+        # int64 indices read once, the product out
+        nbytes = 8 * (N * (6 + G) * 3 + P * 9 + N * (2 + joint)
+                      + I * (6 + G) * 2)
+        bound = _bound(0.0, nbytes, PEAK_F64_FLOPS)
+        by_g[G] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                       bound_by=bound[1], observations=N)
+        print(f"  schur_mv G={G} on {card}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+              "W read once)", flush=True)
+        del S, x, got, again, ref
+    e = by_g[8]
+    return _entry("schur_matvec", "dagsfm_tpu_torch/csrc/schur_matvec.cu",
+                  "none (XLA, S_mv of dagsfm_tpu/sfm/bundle_adjustment.py:"
+                  "779, :959)", err, e["ms"], e["plain_ms"],
+                  (e["bound_ms"], e["bound_by"]), None,
+                  by_g={str(g): v for g, v in by_g.items()})
 
 
 def tool_path(card: str) -> dict:
@@ -3862,8 +3985,8 @@ def main() -> int:
     print(f"== card: {card}; torch device {torch.cuda.get_device_name(0)}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    cuda_build.load("fused_matcher", "top2_matcher",
-                    "minimal_nullspace")              # every nvcc at once
+    cuda_build.load("fused_matcher", "top2_matcher", "minimal_nullspace",
+                    "schur_matvec")                   # every nvcc at once
     mk.load_library()
     tm.load_library()
     print(f"== build: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -3895,6 +4018,7 @@ def _run(args, dev, card: str, mk, tm, t_start: float, work: str) -> int:
     k1 = kernel_phase(mk, dev, card)
     k2, k4, k3 = top2_phase(tm, dev, card)
     k5 = nullspace_phase(dev, card)
+    k6 = schur_phase(dev, card)
     lap("kernel phases")
     tool = tool_path(card)
     lap("tool")
@@ -3975,8 +4099,12 @@ def _run(args, dev, card: str, mk, tm, t_start: float, work: str) -> int:
             raise AssertionError(f"K1 never launched on the {path} path")
     k5["launches"] = planted["minimal_nullspace"]
     k5["launches_by_path"] = {"planted": k5["launches"]}
+    k6["launches"] = bapath["schur_matvec"]
+    k6["launches_by_path"] = {"ba": k6["launches"]}
+    if not k6["launches"]:
+        raise AssertionError("the BA path launched no schur_matvec")
     print(f"== whole run {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

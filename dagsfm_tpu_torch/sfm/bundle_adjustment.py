@@ -15,8 +15,9 @@ Port of dagsfm_tpu/sfm/bundle_adjustment.py:
     Schur complement S = U - W V^-1 Wᵀ assembled over the observation
     pairs that share a point and solved by Cholesky, and the reference's
     ITERATIVE_SCHUR: matrix-free PCG on S with the SCHUR_JACOBI
-    preconditioner, warm-started from the previous LM step. Each has a
-    joint form in which the refinable intrinsics of every camera are
+    preconditioner, warm-started from the previous LM step, its S·x
+    `ops/schur_matvec` (a CUDA kernel on the card). Each has a joint
+    form in which the refinable intrinsics of every camera are
     eliminated together with the poses.
   * every per-camera, per-image and per-point sum adds its terms in a
     fixed order (`_segment_sum`), and the PCG's dot products are plain
@@ -41,6 +42,7 @@ import torch
 from dagsfm_tpu_torch import device as devmod
 from dagsfm_tpu_torch.device import DTYPE
 from dagsfm_tpu_torch.ops import rotations as rops
+from dagsfm_tpu_torch.ops import schur_matvec as sx
 from dagsfm_tpu_torch.ops import solve as lin
 from dagsfm_tpu_torch.scene import cameras as cm
 from dagsfm_tpu_torch.utils import observability as obs
@@ -534,19 +536,15 @@ def _block_inverse(S: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
     return lin.solve_or_nan(S, eye.expand(S.shape))
 
 
-def _no_reduce(*xs):
-    return xs
-
-
 def _solve_iterative(prob: BAProblem, r_w, Jc_w, Jp_w, lam: float,
-                     opts: BAOptions, x_init, reduce=_no_reduce):
+                     opts: BAOptions, x_init, reduce=sx.no_reduce):
     """ITERATIVE_SCHUR: SCHUR_JACOBI-preconditioned CG on the reduced
     camera system, S·x = U x - W V⁻¹ Wᵀ x never formed, from x_init
     (None: zero). `reduce` sums per-image blocks over the processes that
     hold the other observations (the sharded solve; one call before the
     CG and one per CG iteration). Returns (dcam, dpt, CG iterations)."""
     dt = r_w.dtype
-    oi, op = prob.obs_image, prob.obs_point
+    op = prob.obs_point
     free = (~prob.const_image).to(dt)[:, None]
     JcT = Jc_w.transpose(1, 2)
     gp, Vinv = _point_blocks(prob, r_w, Jp_w, lam, opts)
@@ -560,26 +558,21 @@ def _solve_iterative(prob: BAProblem, r_w, Jc_w, Jp_w, lam: float,
     Ud = _damp(U, lam)
     b = (-gc - corr) * free
     Minv = _block_inverse(Ud - B, free.expand(-1, 6))
-
-    def S_mv(x):
-        xm = x * free
-        y = _mv(Vinv, _segment_sum(_mtv(W, xm[oi]), prob.by_point))
-        z, = reduce(_segment_sum(_mv(W, y[op]), prob.by_image))
-        Sx = _mv(Ud, xm) - z
-        return (Sx * free + x * (1.0 - free),)
+    S = sx.system(prob, W, None, Vinv, Ud, None, None, free, None)
 
     with obs.span("ba.pcg"):
-        (dcam,), k = _pcg(S_mv, lambda v: (_mv(Minv, v),), (b,),
+        (dcam,), k = _pcg(lambda *x: sx.schur_mv(S, x, reduce),
+                          lambda v: (_mv(Minv, v),), (b,),
                           None if x_init is None else (x_init * free,), opts)
     dcam = dcam * free
-    wtd = _segment_sum(_mtv(W, dcam[oi]), prob.by_point)
+    wtd = sx.point_sums(S, dcam)
     dpt = _mv(Vinv, gp - wtd) * (~prob.const_points)[:, None].to(dt)
     return dcam, dpt, k
 
 
 def _solve_iterative_joint(prob: BAProblem, r_w, Jc_w, Jp_w, Jg_w,
                            lam: float, opts: BAOptions, x_init,
-                           reduce=_no_reduce):
+                           reduce=sx.no_reduce):
     """ITERATIVE_SCHUR with intrinsics: PCG on the joint camera-side
     system, its SCHUR_JACOBI preconditioner the pose blocks and the
     intrinsics blocks (their coupling dropped from the preconditioner
@@ -588,8 +581,7 @@ def _solve_iterative_joint(prob: BAProblem, r_w, Jc_w, Jp_w, Jg_w,
     per-image blocks are summed over processes before they are folded
     into cameras. Returns (dcam, dint, dpt, CG iterations)."""
     dt = r_w.dtype
-    oi, op, oc = prob.obs_image, prob.obs_point, prob.obs_cam
-    camidx = prob.image_camidx
+    op = prob.obs_point
     free = (~prob.const_image).to(dt)[:, None]
     gfree = (prob.cam_refine > 0).to(dt)                     # (C, G)
 
@@ -612,28 +604,17 @@ def _solve_iterative_joint(prob: BAProblem, r_w, Jc_w, Jp_w, Jg_w,
     b_g = (-fold(gg) - fold(corr_g)) * gfree
     Minv_p = _block_inverse(U_ppd - B_p, free.expand(-1, 6))
     Minv_g = _block_inverse(U_ggd - fold(B_g), gfree)
-
-    def S_mv(xp, xg):
-        xpm, xgm = xp * free, xg * gfree
-        tmp = _segment_sum(_mtv(Wc, xpm[oi]) + _mtv(Wg, xgm[oc]),
-                           prob.by_point)
-        yo = _mv(Vinv, tmp)[op]
-        zc, zg = reduce(_segment_sum(_mv(Wc, yo), prob.by_image),
-                        _segment_sum(_mv(Wg, yo), prob.by_image))
-        Sxp = _mv(U_ppd, xpm) + _mv(U_pg, xgm[camidx]) - zc
-        Sxg = _mv(U_ggd, xgm) + fold(_mtv(U_pg, xpm)) - fold(zg)
-        return (Sxp * free + xp * (1.0 - free),
-                Sxg * gfree + xg * (1.0 - gfree))
+    S = sx.system(prob, Wc, Wg, Vinv, U_ppd, U_pg, U_ggd, free, gfree)
 
     with obs.span("ba.pcg"):
         (dcam, dint), k = _pcg(
-            S_mv, lambda vp, vg: (_mv(Minv_p, vp), _mv(Minv_g, vg)),
+            lambda *x: sx.schur_mv(S, x, reduce),
+            lambda vp, vg: (_mv(Minv_p, vp), _mv(Minv_g, vg)),
             (b_p, b_g),
             None if x_init is None else (x_init * free,
                                          torch.zeros_like(b_g)), opts)
     dcam, dint = dcam * free, dint * gfree
-    wtd = _segment_sum(_mtv(Wc, dcam[oi]) + _mtv(Wg, dint[oc]),
-                       prob.by_point)
+    wtd = sx.point_sums(S, dcam, dint)
     dpt = _mv(Vinv, gp - wtd) * (~prob.const_points)[:, None].to(dt)
     return dcam, dint, dpt, k
 

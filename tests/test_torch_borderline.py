@@ -179,7 +179,8 @@ def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
             (src / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(cuda_build, "CSRC", src)
     names = sorted(f.stem for f in src.glob("*.cu"))
-    assert names == ["fused_matcher", "minimal_nullspace", "top2_matcher"]
+    assert names == ["fused_matcher", "minimal_nullspace", "schur_matvec",
+                     "top2_matcher"]
     before = {n: cuda_build._so_path(n) for n in names}
     header = src / "matcher_tiles.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -191,6 +192,7 @@ def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
     again = {n: cuda_build._so_path(n) for n in names}
     assert again["fused_matcher"] == after["fused_matcher"]
     assert again["minimal_nullspace"] == after["minimal_nullspace"]
+    assert again["schur_matvec"] == after["schur_matvec"]
     assert again["top2_matcher"] != after["top2_matcher"]
 
 

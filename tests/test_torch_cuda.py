@@ -20,9 +20,12 @@ program's spans are on the profiler's clock (K1's launch inside the
 `match` span) and profiler_trace writes them beside the kernels; the
 minimal-nullspace kernel equals its plain version, launches once per
 estimator in a verification batch, and leaves no cuSOLVER QR kernel in
-its trace; the sharded BA over NCCL on four ranks, one card each, holds
-the same bits on every rank and the CPU's result (skips below four
-cards). Every test here needs a CUDA card and skips without one.
+its trace; bundle adjustment's Schur-product kernel equals its plain
+version, repeats to the bit, syncs nothing with the host and refuses
+what it does not take; the sharded BA over NCCL on four ranks, one card
+each, holds the same bits on every rank and the CPU's result (skips
+below four cards). Every test here needs a CUDA card and skips without
+one.
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -622,6 +625,76 @@ def test_nullspace_kernel_refuses_what_it_does_not_take(cuda):
                 A.to(torch.float16), A.mT.contiguous().mT):
         with pytest.raises(ValueError):
             nk.minimal_nullspace(bad)
+
+
+@pytest.mark.parametrize("joint,cameras,dtype,tol", [
+    (False, 5, torch.float64, 1e-12), (True, 1, torch.float64, 1e-12),
+    (True, 5, torch.float64, 1e-12), (True, 5, torch.float32, 1e-4)])
+def test_schur_kernel_equals_plain_version(cuda, joint, cameras, dtype,
+                                           tol):
+    """Bundle adjustment's Schur product (K6) and its point sums against
+    the plain version on the card, to `tol` of the largest entry (another
+    summation order; float32 as the tools run BA), on
+    chip_smoke.schur_case's layout: pinned images and intrinsic slots,
+    held points, points seen once, an image seen by none and one by more
+    than SEGMENT_CHUNK, a camera shared by every image (cameras = 1) or
+    by all but four. Four launches a product; two launches give the same
+    bits."""
+    from chip_smoke import schur_case
+    from dagsfm_tpu_torch.ops import schur_matvec as sxm
+    S, x = schur_case(cuda, 60, 2000, joint, num_cameras=cameras)
+    if dtype != torch.float64:
+        S = sxm.system(S.prob, *(t if t is None else t.to(dtype)
+                                 for t in S[1:-1]))
+        x = tuple(t.to(dtype) for t in x)
+    before = sxm.launches
+    got = sxm.schur_mv(S, x)
+    torch.cuda.synchronize()
+    assert sxm.launches == before + 4
+    again = sxm.schur_mv(S, x)
+    for a, b, c in zip(got, again, sxm.schur_mv_reference(S, x)):
+        assert torch.equal(a, b) and a.dtype == dtype
+        assert float((a - c).abs().max()) <= tol * float(c.abs().max())
+    t = sxm.point_sums(S, *x)
+    ref = sxm.point_sums_reference(S, *x)
+    assert torch.equal(t, sxm.point_sums(S, *x))
+    assert float((t - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+def test_schur_kernel_syncs_nothing(cuda):
+    """S·x and the point sums run with no host synchronisation: the PCG's
+    only read is its own stopping test."""
+    from chip_smoke import schur_case
+    from dagsfm_tpu_torch.ops import schur_matvec as sxm
+    for joint in (False, True):
+        S, x = schur_case(cuda, 60, 2000, joint)
+        sxm.schur_mv(S, x)                        # builds and loads
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sxm.schur_mv(S, x)
+            sxm.point_sums(S, *x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def test_schur_kernel_refuses_what_it_does_not_take(cuda):
+    from chip_smoke import schur_case
+    from dagsfm_tpu_torch.ops import schur_matvec as sxm
+    S, (xp, xg) = schur_case(cuda, 20, 300, True)
+    for bad in ((xp.float(), xg), (xp, xg[:-1]), (xp[:-1], xg),
+                (xp.T.contiguous().T, xg)):
+        with pytest.raises(ValueError):
+            sxm.schur_mv(S, bad)
+    blocks = S[1:-1]                      # Wc ... gfree
+    for k, bad in ((0, S.Wc.float()), (0, S.Wc.half()),
+                   (0, S.Wc.mT.contiguous().mT), (2, S.Vinv[:-1]),
+                   (7, None)):
+        args = list(blocks)
+        args[k] = bad
+        with pytest.raises(ValueError):
+            sxm.system(S.prob, *args)
 
 
 def test_mapper_controller_repeats_bit_for_bit_on_the_card(cuda):

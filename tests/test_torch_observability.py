@@ -380,9 +380,11 @@ def test_spans_change_no_number_of_bundle_adjustment(cg_cap):
     rec = obs.roots()
     assert len(rec) == 1 and rec[0]["name"] == "ba.solve"
     rec = rec[0]
-    assert rec["counters"] == {"lm_steps": sa.num_iterations}
-    calls = {k: v["calls"] for k, v in rec["spans"].items()}
     steps = sa.num_iterations
+    # one S·x per CG iteration and one for each step's warm start
+    assert rec["counters"] == {"lm_steps": steps,
+                               "schur_mv": sa.cg_iterations + steps}
+    calls = {k: v["calls"] for k, v in rec["spans"].items()}
     assert calls == {"ba.solve": 1, "ba.linearize": steps,
                      "ba.solve_step": steps, "ba.pcg": steps,
                      "ba.evaluate": steps}
@@ -434,7 +436,8 @@ def test_sharded_solve_root_and_ba_solve_roots_unchanged(cg_cap):
     steps = opts.max_iterations
     assert rec["name"] == "ba.sharded.solve"
     assert rec["counters"] == {"lm_steps": steps,
-                               "cg_iterations": sa.cg_iterations}
+                               "cg_iterations": sa.cg_iterations,
+                               "schur_mv": sa.cg_iterations}   # CG from 0
     calls = {k: v["calls"] for k, v in rec["spans"].items()}
     assert calls == {"ba.sharded.solve": 1, "ba.sharded.local": 1,
                      "ba.sharded.cost": steps + 1, "ba.pcg": steps}

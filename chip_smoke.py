@@ -2,7 +2,6 @@
 """Smoke run of the PyTorch / CUDA port (dagsfm_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--num-images 100] [--max-features 8192]
-                          [--breakdown]
 
 Phases, each of which fails the run (non-zero exit, no result line) on
 any error:
@@ -994,90 +993,6 @@ def tool_path(card: str) -> dict:
     return counts
 
 
-# Functions whose inclusive time `--breakdown` reports, in call order.
-BREAKDOWN = (
-    ("ops.two_view_classify", "_e_batched"),
-    ("ops.ransac", "sample_indices"),
-    ("ops.ransac", "ransac"),
-    ("ops.epipolar", "essential_5pt"),
-    ("ops.epipolar", "_nullspace_k"),
-    ("ops.polynomials", "real_roots_sturm"),
-    ("ops.epipolar", "sampson_error"),
-    ("ops.epipolar", "essential_8pt"),
-    ("ops.epipolar", "pose_from_essential"),
-    ("sfm.incremental_mapper", "IncrementalMapper.find_initial_pair"),
-    ("sfm.incremental_mapper", "IncrementalMapper.find_next_images"),
-    ("sfm.incremental_mapper", "IncrementalMapper.register_next_image"),
-    ("ops.absolute_pose", "p3p"),
-    ("ops.absolute_pose", "refine_pose"),
-    ("sfm.incremental_mapper", "IncrementalMapper.triangulate_image"),
-    ("sfm.incremental_mapper", "IncrementalMapper.complete_tracks"),
-    ("sfm.incremental_mapper", "IncrementalMapper.merge_tracks"),
-    ("sfm.incremental_mapper", "IncrementalMapper.retriangulate"),
-    ("sfm.incremental_mapper", "IncrementalMapper._run_ba"),
-    ("sfm.bundle_adjustment", "make_problem"),
-    ("sfm.bundle_adjustment", "solve"),
-    ("sfm.incremental_mapper", "IncrementalMapper.filter_points"),
-)
-
-
-def _install_timers() -> dict:
-    """Wrap every BREAKDOWN function with a timer that synchronises the
-    card before and after the call; returns name -> [calls, seconds]."""
-    import importlib
-    stats = {}
-    for mod, attr in BREAKDOWN:
-        owner = importlib.import_module(f"dagsfm_tpu_torch.{mod}")
-        *cls, name = attr.split(".")
-        if cls:
-            owner = getattr(owner, cls[0])
-        fn = getattr(owner, name)
-        stats[attr] = [0, 0.0]
-
-        def timed(*a, _fn=fn, _s=stats[attr], **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = _fn(*a, **k)
-            torch.cuda.synchronize()
-            _s[0] += 1
-            _s[1] += time.perf_counter() - t0
-            return out
-        setattr(owner, name, timed)
-    return stats
-
-
-def _profile_5pt(dev, card: str) -> None:
-    """One 5-point solve of 4 x 256 samples under torch.profiler: its
-    kernel launches and the ops that take its host time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from dagsfm_tpu_torch.ops import epipolar as epi
-    g = torch.Generator(device=dev).manual_seed(0)
-    x1 = torch.rand((4, 256, 5, 2), generator=g, device=dev,
-                    dtype=torch.float64) - 0.5
-    x2 = x1 + 0.01 * torch.rand(x1.shape, generator=g, device=dev,
-                                dtype=x1.dtype)
-    epi.essential_5pt(x1, x2)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        epi.essential_5pt(x1, x2)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    avg = prof.key_averages()
-    launches = sum(e.count for e in avg
-                   if e.key.startswith("cudaLaunchKernel"))
-    print(f"  essential_5pt on 4 x 256 samples on {card}: {wall * 1e3:.3f} "
-          f"ms under the profiler, {launches} kernel launches; ops by self "
-          f"host time:", flush=True)
-    top = sorted((e for e in avg if e.key.startswith("aten::")),
-                 key=lambda e: -e.self_cpu_time_total)[:8]
-    for e in top:
-        print(f"    {e.key}: {e.count} calls, "
-              f"{e.self_cpu_time_total / 1e3:.3f} ms", flush=True)
-
-
 def _write_and_gate(rec, sc, n: int, ate_max: float, rot_max: float,
                     min_reg: int | None = None):
     """Write the COLMAP model and read it back, then hold the
@@ -1111,10 +1026,8 @@ def _write_and_gate(rec, sc, n: int, ate_max: float, rot_max: float,
     return err, secs
 
 
-def main_path(dev, card: str, num_images: int,
-              breakdown: bool = False) -> dict:
-    """The planted path end to end; returns its launch counts. With
-    `breakdown`, the BREAKDOWN functions are timed on the way."""
+def main_path(dev, card: str, num_images: int) -> dict:
+    """The planted path end to end; returns its launch counts."""
     from dagsfm_tpu_torch.features import matching as fm
     from dagsfm_tpu_torch.pipeline.feature_pipeline import (
         FeaturePipeline, FeaturePipelineOptions)
@@ -1140,7 +1053,6 @@ def main_path(dev, card: str, num_images: int,
 
     torch.cuda.synchronize()
     _zero_counts()                                    # counts zeroed
-    stats = _install_timers() if breakdown else {}
     t0 = time.perf_counter()
     fp.match_and_verify()
     cams2, imgs2, graph = fp.to_mapper_inputs()
@@ -1164,9 +1076,6 @@ def main_path(dev, card: str, num_images: int,
           f"{t2 - t1:.3f} s ({err['num_reg'] / (t2 - t1):.3f} images/s), "
           f"model write+read {t_model:.3f} s, end to end "
           f"{t2 - t0 + t_model:.3f} s", flush=True)
-    for name, (calls, secs) in stats.items():
-        print(f"  breakdown on {card} (synchronised timers): {name}: "
-              f"{calls} calls, {secs:.3f} s", flush=True)
     if launches != n_batches:
         raise AssertionError(f"matcher launches {launches} != batches "
                              f"{n_batches}")
@@ -3966,9 +3875,6 @@ def main() -> int:
     ap.add_argument("--max-features", type=int, default=8192,
                     help="SIFT max_num_features on the pixel and distorted "
                          "paths")
-    ap.add_argument("--breakdown", action="store_true",
-                    help="time the planted path's inner functions (with a "
-                         "sync around each) and profile one 5-point solve")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4053,9 +3959,7 @@ def _run(args, dev, card: str, mk, tm, t_start: float, work: str) -> int:
     del fp
     print(f"== planted path cut to {args.num_images} images (100 until the "
           "distributed path joined)", flush=True)
-    if args.breakdown:
-        _profile_5pt(dev, card)
-    planted = main_path(dev, card, args.num_images, args.breakdown)
+    planted = main_path(dev, card, args.num_images)
     lap("planted")
     dist, dist_state = distributed_path(dev, card)
     lap("distributed")

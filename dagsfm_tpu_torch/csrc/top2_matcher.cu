@@ -67,9 +67,7 @@
 //     (griddepcontrol.wait) only for its results. No atomics: the results
 //     repeat bit for bit.
 // K1 and K2 must be multiples of 128 (the reference's shape rule; the
-// wrapper checks), so every tile is full. K3_SPLIT, unset in the library
-// the port loads, builds the stages one at a time for tools/k3_split.py:
-// 1 the product and a max per thread, 2 + the tiles' top-2 (no fold).
+// wrapper checks), so every tile is full.
 
 namespace k3 {
 constexpr int DIM = 128;
@@ -255,18 +253,7 @@ top2_f32_tiles(const float* __restrict__ d1, const float* __restrict__ d2,
     }
     float b, s;
     int i;
-#if K3_SPLIT == 1
-    // analysis build (tools/k3_split.py): the product and one max a thread
-    b = acc[0][0];
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) b = fmaxf(b, acc[r][j]);
-    s = b;
-    i = col0 + tx;
-#else
     reduce_tile(acc, col0 + tx, tx, b, s, i);
-#endif
     if (tx % (TX / TM) == 0) {                 // one lane per row writes
         const size_t o = (size_t)(row0 + ty + TY * (tx / (TX / TM))) *
                              gridDim.y + blockIdx.y;
@@ -385,9 +372,6 @@ extern "C" int top2_f32_launch(const void* d1, const void* d2, int K1,
                      st>>>((const float*)d1, (const float*)d2, K1, pb, ps,
                            pi);
     e = cudaGetLastError();
-#ifdef K3_SPLIT
-    return (int)e;                             // analysis builds: no fold
-#endif
     if (e != cudaSuccess || ntiles == 1) return (int)e;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((K1 + 7) / 8);          // 8 rows, one per warp

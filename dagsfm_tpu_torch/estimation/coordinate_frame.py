@@ -14,7 +14,7 @@ cross-correlation `lax.conv` computes, its taps added in XLA:CPU's
 order), then each strong pixel's vote into its (theta, rho) bin. The
 JAX package scatter-adds the votes; on a GPU `index_add_` adds with
 atomics in no fixed order, so here the votes are sorted by bin and
-summed in a fixed order (`bundle_adjustment._segment_sum`): the same
+summed in a fixed order (`ops/segment_sum`): the same
 bits on every run. Peak picking, vanishing points and the consensus run
 on the host in numpy, as in the JAX package.
 """
@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from dagsfm_tpu_torch import device as devmod
 from dagsfm_tpu_torch.ops import rotations as rops
-from dagsfm_tpu_torch.sfm.bundle_adjustment import _segment_sum, segments
+from dagsfm_tpu_torch.ops.segment_sum import segment_sum, segments
 
 # torch.quantile refuses inputs of more than 2**24 elements: the default
 # max_image_size of 1024 keeps an image at 1024 x 1024 = 2**20 at most
@@ -164,11 +164,11 @@ def _hough_accumulate(img: torch.Tensor, num_theta: int = 60,
     """Gradient-weighted Hough accumulator: each pixel votes |grad| into
     its gradient-orientation bin at rho = x cos(theta) + y sin(theta).
     The votes are summed per bin in pixel order, in chunks
-    (`_segment_sum`): no atomics, the same bits on every run. Returns
+    (`segment_sum`): no atomics, the same bits on every run. Returns
     (acc (T, R) float32 on img's device, rho_max)."""
     key, weight, rho_max = _hough_bins(img, num_theta, num_rho)
-    acc = _segment_sum(weight, segments(key, num_theta * num_rho,
-                                          key.device))
+    acc = segment_sum(weight, segments(key, num_theta * num_rho,
+                                         key.device))
     return acc.reshape(num_theta, num_rho), rho_max
 
 

@@ -6,7 +6,7 @@ on the host, then on the device a fixed number of L1 and IRLS steps,
 each solving the graph Laplacian system (L ⊗ I₃) dω = b by 50
 Jacobi-preconditioned CG steps whose mat-vec is segment sums over the
 edge list. Every sum adds its terms in edge order
-(`bundle_adjustment._segment_sum`), so a run repeats to the bit on the
+(`ops/segment_sum`), so a run repeats to the bit on the
 card. Clamps, the 1e8 gauge pin on node 0 and the final re-anchor are
 the reference's.
 
@@ -24,7 +24,7 @@ from dagsfm_tpu_torch import device as devmod
 from dagsfm_tpu_torch.ops import rotations as rops
 from dagsfm_tpu_torch.parallel.mesh import (all_reduce, own_shards,
                                             process_group)
-from dagsfm_tpu_torch.sfm.bundle_adjustment import _segment_sum, segments
+from dagsfm_tpu_torch.ops.segment_sum import segment_sum, segments
 
 
 class RAOptions(NamedTuple):
@@ -132,8 +132,8 @@ def _solve_ra_local(R_init: torch.Tensor, edges: np.ndarray,
     return _solve_ra(
         R_init, torch.as_tensor(edges[:, 0], device=dev),
         torch.as_tensor(edges[:, 1], device=dev), rel_rot, opts,
-        lambda v: _segment_sum(v, by_src) + _segment_sum(v, by_dst),
-        lambda v: _segment_sum(v, by_src) + _segment_sum(-v, by_dst))
+        lambda v: segment_sum(v, by_src) + segment_sum(v, by_dst),
+        lambda v: segment_sum(v, by_src) + segment_sum(-v, by_dst))
 
 
 def _reanchored(R: torch.Tensor) -> np.ndarray:
@@ -201,10 +201,10 @@ def estimate_rotations_sharded(num_images: int, edges: np.ndarray,
     by_both = segments(np.concatenate([src, dst]), num_images, dev)
 
     def seg_both(v):
-        return all_reduce(_segment_sum(torch.cat([v, v]), by_both))
+        return all_reduce(segment_sum(torch.cat([v, v]), by_both))
 
     def seg_diff(v):
-        return all_reduce(_segment_sum(torch.cat([v, -v]), by_both))
+        return all_reduce(segment_sum(torch.cat([v, -v]), by_both))
 
     R0 = spanning_tree_init(num_images, edges, rel_rot)
     return _reanchored(_solve_ra(

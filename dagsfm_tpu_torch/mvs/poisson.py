@@ -17,7 +17,7 @@ The reference's splat is a scatter-add (`.at[].add`); on the card a
 scatter-add of floats is a set of atomics whose order, and so whose
 bits, change from run to run. Here the splat sorts the corner
 contributions by cell (a stable sort) and sums each cell's run in a
-fixed order (`sfm/bundle_adjustment.py`'s segment sums), so two runs on
+fixed order (`ops/segment_sum`), so two runs on
 the same cloud give the same mesh bit for bit.
 """
 
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from dagsfm_tpu_torch import device as devmod
-from dagsfm_tpu_torch.sfm.bundle_adjustment import _segment_sum, segments
+from dagsfm_tpu_torch.ops.segment_sum import segment_sum, segments
 
 
 class PoissonOptions(NamedTuple):
@@ -68,7 +68,7 @@ def _trilinear_scatter(grid_shape, pts, vals):
         keys.append(key)
         parts.append(vals * w[:, None])
     seg = segments(torch.cat(keys), G ** 3, pts.device)
-    return _segment_sum(torch.cat(parts), seg).reshape(G, G, G, C)
+    return segment_sum(torch.cat(parts), seg).reshape(G, G, G, C)
 
 
 def _trilinear_sample(vol, pts):

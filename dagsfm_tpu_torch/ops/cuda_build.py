@@ -37,12 +37,11 @@ def _nvcc() -> str:
                        "toolkit to build")
 
 
-def nvcc_command(src: Path, out: Path, defines=()) -> list:
-    """nvcc for sm_90a into a shared library, with -D for each define."""
+def nvcc_command(src: Path, out: Path) -> list:
+    """nvcc for sm_90a into a shared library."""
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", *(f"-D{d}" for d in defines), "-o", str(out),
-            str(src)]
+            "-Xptxas", "-v", "-o", str(out), str(src)]
 
 
 def _so_path(name: str) -> Path:

@@ -2,9 +2,9 @@
 kernel and plain version.
 
 S = U - W V⁻¹ Wᵀ is the reduced camera system of one LM step
-(`sfm/bundle_adjustment._solve_iterative` and `_solve_iterative_joint`),
-over the poses (I, 6) and, with the intrinsics, every camera's G = 8
-slots; the PCG applies it matrix-free once an iteration. Replaces no TPU
+(`sfm/bundle_adjustment._solve_iterative`), over the poses (I, 6) and,
+with the intrinsics, every camera's G = 8 slots; the PCG applies it
+matrix-free once an iteration. Replaces no TPU
 kernel: the JAX package leaves this product to XLA. The kernel is
 `csrc/schur_matvec.cu` (K6), compiled with nvcc for sm_90a into a shared
 library with a plain C interface and loaded with ctypes; see the .cu file
@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from dagsfm_tpu_torch.ops import cuda_build
+from dagsfm_tpu_torch.ops.segment_sum import mtv, mv, segment_sum
 from dagsfm_tpu_torch.utils import observability as obs
 
 launches = 0          # kernel launches (four per schur_mv on a GPU)
@@ -174,12 +175,11 @@ def _point_launch(sys_: SchurSystem, xp, xg, Vinv) -> torch.Tensor:
 def point_sums_reference(sys_: SchurSystem, xp, xg=None) -> torch.Tensor:
     """Plain version of `point_sums`: the per-observation products, then
     their segment sums by point."""
-    from dagsfm_tpu_torch.sfm import bundle_adjustment as ba  # imports us
     prob = sys_.prob
-    t = ba._mtv(sys_.Wc, (xp * sys_.free)[prob.obs_image])
+    t = mtv(sys_.Wc, (xp * sys_.free)[prob.obs_image])
     if sys_.Wg is not None:
-        t = t + ba._mtv(sys_.Wg, (xg * sys_.gfree)[prob.obs_cam])
-    return ba._segment_sum(t, prob.by_point)
+        t = t + mtv(sys_.Wg, (xg * sys_.gfree)[prob.obs_cam])
+    return segment_sum(t, prob.by_point)
 
 
 def point_sums(sys_: SchurSystem, xp, xg=None) -> torch.Tensor:
@@ -201,27 +201,26 @@ def schur_mv_reference(sys_: SchurSystem, x: tuple,
                        reduce=no_reduce) -> tuple:
     """Plain version of `schur_mv`: the port's segment sums, as the PCG
     computed S·x before the kernel."""
-    from dagsfm_tpu_torch.sfm import bundle_adjustment as ba  # imports us
     prob, free, gfree = sys_.prob, sys_.free, sys_.gfree
     joint = sys_.Wg is not None
     xpm = x[0] * free
     xgm = x[1] * gfree if joint else None
-    yo = ba._mv(sys_.Vinv, point_sums_reference(sys_, *x))[prob.obs_point]
-    z = [ba._segment_sum(ba._mv(sys_.Wc, yo), prob.by_image)]
+    yo = mv(sys_.Vinv, point_sums_reference(sys_, *x))[prob.obs_point]
+    z = [segment_sum(mv(sys_.Wc, yo), prob.by_image)]
     if joint:
-        z.append(ba._segment_sum(ba._mv(sys_.Wg, yo), prob.by_image))
+        z.append(segment_sum(mv(sys_.Wg, yo), prob.by_image))
     z = reduce(*z)
-    Sxp = ba._mv(sys_.U_pp, xpm)
+    Sxp = mv(sys_.U_pp, xpm)
     if joint:
-        Sxp = Sxp + ba._mv(sys_.U_pg, xgm[prob.image_camidx])
+        Sxp = Sxp + mv(sys_.U_pg, xgm[prob.image_camidx])
     out = ((Sxp - z[0]) * free + x[0] * (1.0 - free),)
     if not joint:
         return out
 
     def fold(z_img):
-        return ba._segment_sum(z_img, prob.img_by_cam)
+        return segment_sum(z_img, prob.img_by_cam)
 
-    Sxg = ba._mv(sys_.U_gg, xgm) + fold(ba._mtv(sys_.U_pg, xpm)) - fold(z[1])
+    Sxg = mv(sys_.U_gg, xgm) + fold(mtv(sys_.U_pg, xpm)) - fold(z[1])
     return out + (Sxg * gfree + x[1] * (1.0 - gfree),)
 
 

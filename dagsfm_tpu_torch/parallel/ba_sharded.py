@@ -26,7 +26,10 @@ decimated uniformly (slots (pos T) // size, no hash phase); the loss is
 Cauchy of scale loss_scale whatever `opts.loss`; exactly
 max_iterations LM iterations, no ftol exit, lambda max(lambda/3, 1e-10)
 on accept and min(4 lambda, 1e6) on reject; `solver="auto"` takes the
-iterative regime above dense_threshold images.
+iterative regime above dense_threshold images. Those rules, and the dense
+step's damping of S after the reduce, are why the LM loop and the dense
+step here are the module's own; the weighting, the solver choice and the
+iterative step are `sfm.bundle_adjustment`'s.
 
 The reference's `place` and its compiled-program cache (`_cached_solver`)
 are XLA's concerns and have no counterpart.
@@ -41,6 +44,7 @@ import torch
 
 from dagsfm_tpu_torch import device as devmod
 from dagsfm_tpu_torch.device import DTYPE
+from dagsfm_tpu_torch.ops.segment_sum import mtv, mv, segment_sum
 from dagsfm_tpu_torch.parallel.mesh import (all_reduce, all_reduce_many,
                                             own_shards, partition_balanced)
 from dagsfm_tpu_torch.scene import cameras as cm
@@ -249,13 +253,13 @@ def _solve_dense(local: ba.BAProblem, pairs: ba.Pairs, r_w, Jc_w, Jp_w,
     gp, Vinv = ba._point_blocks(local, r_w, Jp_w, lam, opts)
     W = JcT @ Jp_w                                            # (N, 6, 3)
     Y = W @ Vinv[op]
-    S = ba._segment_sum(-(Y[pairs.a] @ W[pairs.b].transpose(1, 2)),
-                        pairs.by_pp).reshape(I, I, 6, 6)
+    S = segment_sum(-(Y[pairs.a] @ W[pairs.b].transpose(1, 2)),
+                    pairs.by_pp).reshape(I, I, 6, 6)
     diag = torch.arange(I, device=dev)
-    S[diag, diag] += ba._segment_sum(JcT @ Jc_w, local.by_image)
+    S[diag, diag] += segment_sum(JcT @ Jc_w, local.by_image)
     S, gc, corr = all_reduce_many(
-        S, ba._segment_sum(ba._mv(JcT, r_w), local.by_image),
-        ba._segment_sum(ba._mv(Y, gp[op]), local.by_image))
+        S, segment_sum(mv(JcT, r_w), local.by_image),
+        segment_sum(mv(Y, gp[op]), local.by_image))
     b = -gc - corr
     eye6 = torch.eye(6, dtype=dt, device=dev)
     S[diag, diag] += lam * eye6 * torch.clamp(
@@ -266,8 +270,8 @@ def _solve_dense(local: ba.BAProblem, pairs: ba.Pairs, r_w, Jc_w, Jp_w,
     dcam = ba._spd_solve(S.permute(0, 2, 1, 3).reshape(I * 6, I * 6),
                          (b * free[:, None]).reshape(-1)).reshape(I, 6)
     dcam = dcam * free[:, None]
-    wtd = ba._segment_sum(ba._mtv(W, dcam[oi]), local.by_point)
-    return dcam, ba._mv(Vinv, gp - wtd)
+    wtd = segment_sum(mtv(W, dcam[oi]), local.by_point)
+    return dcam, mv(Vinv, gp - wtd)
 
 
 def solve_sharded(prob: ShardedBAProblem,
@@ -289,11 +293,7 @@ def solve_sharded(prob: ShardedBAProblem,
 def _solve_sharded(prob: ShardedBAProblem, opts: ba.BAOptions) -> tuple:
     I = prob.image_qvec.shape[0]
     refine = ba._refine_any(opts)
-    solver = opts.solver
-    if solver == "auto":
-        solver = "iterative" if I > opts.dense_threshold else "dense"
-    if solver not in ("dense", "iterative"):
-        raise ValueError(f"unknown solver {opts.solver!r}")
+    solver = ba._pick_solver(opts, I)
     if refine:
         solver = "iterative"     # the joint system is matrix-free only
     D, Pd = prob.points.shape[:2]
@@ -301,26 +301,20 @@ def _solve_sharded(prob: ShardedBAProblem, opts: ba.BAOptions) -> tuple:
     with obs.span("ba.sharded.local"):
         local = _local_problem(prob, shards)
     pairs = ba._pairs(local, False) if solver == "dense" else None
-    dt = local.obs_xy.dtype
-    camfree = (~local.const_image).to(dt)[local.obs_image][:, None, None]
     cost = init_cost = _cost(local, opts)
     lam, cg = float(opts.init_lambda), 0
     for _ in range(opts.max_iterations):
         r, Jc, Jp, Jg = ba._residuals_and_jacobians(local, refine)
-        sw = torch.sqrt(ba._robust_weights(torch.sum(r * r, -1), "cauchy",
-                                           opts.loss_scale))[:, None, None]
-        r_w, Jc_w, Jp_w = r * sw[..., 0], Jc * sw * camfree, Jp * sw
+        w = ba._robust_weights(torch.sum(r * r, -1), "cauchy",
+                               opts.loss_scale)
+        r_w, Jc_w, Jp_w, Jg_w = ba._weighted(local, r, Jc, Jp, Jg, w)
         dint = None
         if solver == "dense":
             dcam, dpt = _solve_dense(local, pairs, r_w, Jc_w, Jp_w, lam, opts)
-        elif refine:
-            dcam, dint, dpt, k = ba._solve_iterative_joint(
-                local, r_w, Jc_w, Jp_w, Jg * sw, lam, opts, None,
-                all_reduce_many)
-            cg += k
         else:
-            dcam, dpt, k = ba._solve_iterative(local, r_w, Jc_w, Jp_w, lam,
-                                               opts, None, all_reduce_many)
+            dcam, dint, dpt, k = ba._solve_iterative(
+                local, r_w, Jc_w, Jp_w, Jg_w, lam, opts, None,
+                all_reduce_many)
             cg += k
         trial = ba._apply_step(local, dcam, dpt, dint)
         new_cost = _cost(trial, opts)

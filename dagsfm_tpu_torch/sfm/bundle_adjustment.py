@@ -16,13 +16,13 @@ Port of dagsfm_tpu/sfm/bundle_adjustment.py:
     pairs that share a point and solved by Cholesky, and the reference's
     ITERATIVE_SCHUR: matrix-free PCG on S with the SCHUR_JACOBI
     preconditioner, warm-started from the previous LM step, its S·x
-    `ops/schur_matvec` (a CUDA kernel on the card). Each has a joint
-    form in which the refinable intrinsics of every camera are
-    eliminated together with the poses.
+    `ops/schur_matvec` (a CUDA kernel on the card). When intrinsics
+    refine, each step eliminates the refinable intrinsics of every
+    camera together with the poses; otherwise the same statements run
+    without the intrinsics blocks.
   * every per-camera, per-image and per-point sum adds its terms in a
-    fixed order (`_segment_sum`), and the PCG's dot products are plain
-    reductions: `index_add_`'s atomics on a GPU add in no fixed order, and
-    a mapping then differed from run to run in its last bits.
+    fixed order (`ops/segment_sum`), and the PCG's dot products are plain
+    reductions.
   * the LM loop keeps the reference's accept/reject rule, lambda
     schedule (/3 on accept, x4 on reject, in [1e-10, 1e6]) and its exit
     on two consecutive accepted steps with relative gain below ftol, or
@@ -44,55 +44,10 @@ from dagsfm_tpu_torch.device import DTYPE
 from dagsfm_tpu_torch.ops import rotations as rops
 from dagsfm_tpu_torch.ops import schur_matvec as sx
 from dagsfm_tpu_torch.ops import solve as lin
+from dagsfm_tpu_torch.ops.segment_sum import (Segments, mtv, mv,
+                                              segment_sum, segments)
 from dagsfm_tpu_torch.scene import cameras as cm
 from dagsfm_tpu_torch.utils import observability as obs
-
-# `_segment_sum` adds each run in chunks of at most this many rows, then
-# the chunk sums of each target: CUDA's segment_reduce walks a run with
-# one thread per output element, and a camera shared by every image
-# makes a run of millions of observation pairs
-SEGMENT_CHUNK = 256
-
-
-class Segments(NamedTuple):
-    """Rows of a tensor grouped by target: rows `order` (None: the rows
-    as they are) fall into consecutive runs of `lengths`, one run per
-    target in target order, each run in the rows' original order, and
-    each run into `chunk_counts` consecutive `chunks` (an empty run into
-    one empty chunk)."""
-    order: torch.Tensor | None   # (M,) int64
-    lengths: torch.Tensor        # (T,) int64
-    chunks: torch.Tensor         # (K,) int64, rows per chunk
-    chunk_counts: torch.Tensor   # (T,) int64, chunks per target
-
-
-def segments(keys, num: int, device, order: bool = True) -> Segments:
-    """Segments of the rows by target `keys` (a host int array or a
-    tensor) in [0, num), built on `device`: a stable sort by key,
-    SEGMENT_CHUNK rows per chunk, one read-back for the number of
-    chunks."""
-    keys = (keys.to(device, torch.int64) if isinstance(keys, torch.Tensor)
-            else torch.as_tensor(np.asarray(keys, np.int64), device=device))
-    lengths = torch.bincount(keys, minlength=num)
-    ordr = torch.argsort(keys, stable=True) if order else None
-    counts = torch.clamp(-(-lengths // SEGMENT_CHUNK), min=1)   # empty: one
-    chunks = torch.full((int(counts.sum()),), SEGMENT_CHUNK,
-                        dtype=torch.int64, device=device)
-    chunks[torch.cumsum(counts, 0) - 1] = \
-        lengths - SEGMENT_CHUNK * (counts - 1)
-    return Segments(ordr, lengths, chunks, counts)
-
-
-def _segment_sum(x: torch.Tensor, seg: Segments) -> torch.Tensor:
-    """(T, ...) sums of x's rows per target in a fixed order: the same
-    bits on every run, on a GPU too. The chunk sums first, then their
-    sums per target (empty targets 0)."""
-    if seg.order is not None:
-        x = x[seg.order]
-    part = torch.segment_reduce(x, "sum", lengths=seg.chunks, axis=0)
-    return torch.segment_reduce(part, "sum", lengths=seg.chunk_counts,
-                                axis=0)
-
 
 class BAProblem(NamedTuple):
     """I images, P points, N kept observations, C cameras."""
@@ -383,20 +338,12 @@ def _damp(U: torch.Tensor, lam: float) -> torch.Tensor:
 def _point_blocks(prob: BAProblem, r_w, Jp_w, lam: float, opts: BAOptions):
     """(gp (P,3), Vinv (P,3,3)): the point side, damped and inverted."""
     JpT = Jp_w.transpose(1, 2)
-    V = _segment_sum(JpT @ Jp_w, prob.by_point)
-    gp = -_segment_sum((JpT @ r_w[..., None])[..., 0], prob.by_point)
+    V = segment_sum(JpT @ Jp_w, prob.by_point)
+    gp = -segment_sum((JpT @ r_w[..., None])[..., 0], prob.by_point)
     eye3 = torch.eye(3, dtype=V.dtype, device=V.device)
     Vd = V + (lam * torch.clamp(V.diagonal(dim1=-2, dim2=-1), min=1e-6)[
         ..., None] + opts.point_damping) * eye3
     return gp, _inv3(Vd + 1e-12 * eye3)
-
-
-def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return (A @ x[..., None])[..., 0]
-
-
-def _mtv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return (A.transpose(-1, -2) @ x[..., None])[..., 0]
 
 
 def _spd_solve(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -407,88 +354,69 @@ def _spd_solve(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(b[:, None], L)[:, 0]
 
 
-def _solve_dense(prob: BAProblem, pairs: Pairs, r_w, Jc_w, Jp_w, lam: float,
-                 opts: BAOptions):
-    """Dense Schur step. Returns (dcam (I, 6), dpt (P, 3))."""
-    I = prob.image_qvec.shape[0]
-    dt, dev = r_w.dtype, r_w.device
-    oi, op = prob.obs_image, prob.obs_point
-    free = (~prob.const_image).to(dt)
-    JcT = Jc_w.transpose(1, 2)
-    U = _damp(_segment_sum(JcT @ Jc_w, prob.by_image), lam)
-    gc = -_segment_sum((JcT @ r_w[..., None])[..., 0], prob.by_image)
-    gp, Vinv = _point_blocks(prob, r_w, Jp_w, lam, opts)
-    W = JcT @ Jp_w                                            # (N, 6, 3)
-    Y = W @ Vinv[op]
-    b = gc - _segment_sum(_mv(Y, gp[op]), prob.by_image)
-    S = _segment_sum(-(Y[pairs.a] @ W[pairs.b].transpose(1, 2)),
-                     pairs.by_pp).reshape(I, I, 6, 6)
-    diag = torch.arange(I, device=dev)
-    S[diag, diag] += U
-    eye6 = torch.eye(6, dtype=dt, device=dev)
-    S = S * free[:, None, None, None] * free[None, :, None, None]
-    S[diag, diag] += (1.0 - free)[:, None, None] * eye6
-    b = b * free[:, None]
-    dcam = _spd_solve(S.permute(0, 2, 1, 3).reshape(I * 6, I * 6),
-                      b.reshape(-1)).reshape(I, 6)
-    wtd = _segment_sum(_mtv(W, dcam[oi]), prob.by_point)
-    dpt = _mv(Vinv, gp - wtd) * (~prob.const_points)[:, None].to(dt)
-    return dcam * free[:, None], dpt
-
-
-def _solve_dense_joint(prob: BAProblem, pairs: Pairs, r_w, Jc_w, Jp_w, Jg_w,
-                       lam: float, opts: BAOptions):
-    """Dense joint Schur step: poses (I, 6) and every camera's intrinsics
-    (C, 8) eliminated together, points Schur-eliminated. The intrinsics
-    of a camera shared by many images are one block that every
-    observation of its images adds to. Returns (dcam, dint, dpt)."""
+def _solve_dense(prob: BAProblem, pairs: Pairs, r_w, Jc_w, Jp_w, Jg_w,
+                 lam: float, opts: BAOptions):
+    """Dense Schur step: the poses (I, 6) and, given Jg_w, every camera's
+    intrinsics (C, 8) eliminated together, the points Schur-eliminated.
+    The intrinsics of a camera shared by many images are one block that
+    every observation of its images adds to. Pinned images and held
+    slots solve as the identity. Returns (dcam, dint or None, dpt)."""
     I, C = prob.image_qvec.shape[0], prob.cam_params.shape[0]
-    G = Jg_w.shape[-1]
     dt, dev = r_w.dtype, r_w.device
     oi, op, oc = prob.obs_image, prob.obs_point, prob.obs_cam
 
     def fold(z_img):
-        return _segment_sum(z_img, prob.img_by_cam)
+        return segment_sum(z_img, prob.img_by_cam)
 
-    JcT, JgT = Jc_w.transpose(1, 2), Jg_w.transpose(1, 2)
-    U_pp = _damp(_segment_sum(JcT @ Jc_w, prob.by_image), lam)
-    U_gg = _damp(fold(_segment_sum(JgT @ Jg_w, prob.by_image)), lam)
-    U_pg = _segment_sum(JcT @ Jg_w, prob.by_image)            # (I, 6, G)
-    g_p = -_segment_sum(_mv(JcT, r_w), prob.by_image)
-    g_g = -fold(_segment_sum(_mv(JgT, r_w), prob.by_image))
+    JcT = Jc_w.transpose(1, 2)
+    U_pp = _damp(segment_sum(JcT @ Jc_w, prob.by_image), lam)
     gp, Vinv = _point_blocks(prob, r_w, Jp_w, lam, opts)
-    Wc, Wg = JcT @ Jp_w, JgT @ Jp_w                           # (N, 6|G, 3)
+    Wc = JcT @ Jp_w                                           # (N, 6, 3)
     Vo, gpo = Vinv[op], gp[op]
-    Yc, Yg = Wc @ Vo, Wg @ Vo
-    g_p = g_p - _segment_sum(_mv(Yc, gpo), prob.by_image)
-    g_g = g_g - fold(_segment_sum(_mv(Yg, gpo), prob.by_image))
-
+    Yc = Wc @ Vo
+    g_p = -segment_sum(mv(JcT, r_w), prob.by_image) - segment_sum(
+        mv(Yc, gpo), prob.by_image)
     pa, pb = pairs.a, pairs.b
-    Wc_b, Wg_b = Wc[pb].transpose(1, 2), Wg[pb].transpose(1, 2)
-    S_pp = _segment_sum(-(Yc[pa] @ Wc_b), pairs.by_pp).reshape(I, I, 6, 6)
-    S_pg = _segment_sum(-(Yc[pa] @ Wg_b), pairs.by_pg).reshape(I, C, 6, G)
-    S_gg = _segment_sum(-(Yg[pa] @ Wg_b), pairs.by_gg).reshape(C, C, G, G)
-    di, dc = torch.arange(I, device=dev), torch.arange(C, device=dev)
+    S_pp = segment_sum(-(Yc[pa] @ Wc[pb].transpose(1, 2)),
+                       pairs.by_pp).reshape(I, I, 6, 6)
+    di = torch.arange(I, device=dev)
     S_pp[di, di] += U_pp
-    S_gg[dc, dc] += U_gg
-    S_pg[di, prob.image_camidx] += U_pg
-
-    Spp = S_pp.permute(0, 2, 1, 3).reshape(I * 6, I * 6)
-    Spg = S_pg.permute(0, 2, 1, 3).reshape(I * 6, C * G)
-    Sgg = S_gg.permute(0, 2, 1, 3).reshape(C * G, C * G)
-    S = torch.cat([torch.cat([Spp, Spg], 1), torch.cat([Spg.T, Sgg], 1)], 0)
-    b = torch.cat([g_p.reshape(-1), g_g.reshape(-1)])
+    S = S_pp.permute(0, 2, 1, 3).reshape(I * 6, I * 6)
+    b = g_p.reshape(-1)
     free_p = (~prob.const_image).to(dt)
-    fv = torch.cat([free_p.repeat_interleave(6),
-                    (prob.cam_refine > 0).to(dt).reshape(-1)])
+    fv = free_p.repeat_interleave(6)
+    if Jg_w is not None:
+        G = Jg_w.shape[-1]
+        JgT = Jg_w.transpose(1, 2)
+        U_gg = _damp(fold(segment_sum(JgT @ Jg_w, prob.by_image)), lam)
+        U_pg = segment_sum(JcT @ Jg_w, prob.by_image)         # (I, 6, G)
+        Wg = JgT @ Jp_w                                       # (N, G, 3)
+        Yg = Wg @ Vo
+        g_g = -fold(segment_sum(mv(JgT, r_w), prob.by_image)) - fold(
+            segment_sum(mv(Yg, gpo), prob.by_image))
+        Wg_b = Wg[pb].transpose(1, 2)
+        S_pg = segment_sum(-(Yc[pa] @ Wg_b),
+                           pairs.by_pg).reshape(I, C, 6, G)
+        S_gg = segment_sum(-(Yg[pa] @ Wg_b),
+                           pairs.by_gg).reshape(C, C, G, G)
+        dc = torch.arange(C, device=dev)
+        S_gg[dc, dc] += U_gg
+        S_pg[di, prob.image_camidx] += U_pg
+        Spg = S_pg.permute(0, 2, 1, 3).reshape(I * 6, C * G)
+        Sgg = S_gg.permute(0, 2, 1, 3).reshape(C * G, C * G)
+        S = torch.cat([torch.cat([S, Spg], 1), torch.cat([Spg.T, Sgg], 1)])
+        b = torch.cat([b, g_g.reshape(-1)])
+        fv = torch.cat([fv, (prob.cam_refine > 0).to(dt).reshape(-1)])
     S = S * fv[:, None] * fv[None, :] + torch.diag(1.0 - fv)
     sol = _spd_solve(S, b * fv) * fv
     dcam = sol[: I * 6].reshape(I, 6)
-    dint = sol[I * 6:].reshape(C, G)
-
-    wtd = _segment_sum(_mtv(Wc, dcam[oi]) + _mtv(Wg, dint[oc]),
-                       prob.by_point)
-    dpt = _mv(Vinv, gp - wtd) * (~prob.const_points)[:, None].to(dt)
+    t = mtv(Wc, dcam[oi])
+    dint = None
+    if Jg_w is not None:
+        dint = sol[I * 6:].reshape(C, G)
+        t = t + mtv(Wg, dint[oc])
+    dpt = mv(Vinv, gp - segment_sum(t, prob.by_point)) * (
+        ~prob.const_points)[:, None].to(dt)
     return dcam * free_p[:, None], dint, dpt
 
 
@@ -536,93 +464,73 @@ def _block_inverse(S: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
     return lin.solve_or_nan(S, eye.expand(S.shape))
 
 
-def _solve_iterative(prob: BAProblem, r_w, Jc_w, Jp_w, lam: float,
+def _solve_iterative(prob: BAProblem, r_w, Jc_w, Jp_w, Jg_w, lam: float,
                      opts: BAOptions, x_init, reduce=sx.no_reduce):
     """ITERATIVE_SCHUR: SCHUR_JACOBI-preconditioned CG on the reduced
-    camera system, S·x = U x - W V⁻¹ Wᵀ x never formed, from x_init
-    (None: zero). `reduce` sums per-image blocks over the processes that
-    hold the other observations (the sharded solve; one call before the
-    CG and one per CG iteration). Returns (dcam, dpt, CG iterations)."""
+    camera system, S·x = U x - W V⁻¹ Wᵀ x never formed (`ops/schur_matvec`),
+    over the poses and, given Jg_w, every camera's intrinsics; the
+    preconditioner is the pose blocks and the intrinsics blocks (their
+    coupling dropped from the preconditioner only). CG starts from
+    x_init's poses (None: zero) and zero intrinsics, as the reference.
+    `reduce` sums per-image blocks over the processes that hold the other
+    observations (the sharded solve), before they are folded into
+    cameras: one call before the CG and one per CG iteration. Returns
+    (dcam, dint or None, dpt, CG iterations)."""
     dt = r_w.dtype
     op = prob.obs_point
     free = (~prob.const_image).to(dt)[:, None]
-    JcT = Jc_w.transpose(1, 2)
-    gp, Vinv = _point_blocks(prob, r_w, Jp_w, lam, opts)
-    W = JcT @ Jp_w
-    WVinv = W @ Vinv[op]
-    U, gc, corr, B = reduce(
-        _segment_sum(JcT @ Jc_w, prob.by_image),
-        _segment_sum(_mv(JcT, r_w), prob.by_image),
-        _segment_sum(_mv(W, _mv(Vinv, gp)[op]), prob.by_image),
-        _segment_sum(WVinv @ W.transpose(1, 2), prob.by_image))
-    Ud = _damp(U, lam)
-    b = (-gc - corr) * free
-    Minv = _block_inverse(Ud - B, free.expand(-1, 6))
-    S = sx.system(prob, W, None, Vinv, Ud, None, None, free, None)
-
-    with obs.span("ba.pcg"):
-        (dcam,), k = _pcg(lambda *x: sx.schur_mv(S, x, reduce),
-                          lambda v: (_mv(Minv, v),), (b,),
-                          None if x_init is None else (x_init * free,), opts)
-    dcam = dcam * free
-    wtd = sx.point_sums(S, dcam)
-    dpt = _mv(Vinv, gp - wtd) * (~prob.const_points)[:, None].to(dt)
-    return dcam, dpt, k
-
-
-def _solve_iterative_joint(prob: BAProblem, r_w, Jc_w, Jp_w, Jg_w,
-                           lam: float, opts: BAOptions, x_init,
-                           reduce=sx.no_reduce):
-    """ITERATIVE_SCHUR with intrinsics: PCG on the joint camera-side
-    system, its SCHUR_JACOBI preconditioner the pose blocks and the
-    intrinsics blocks (their coupling dropped from the preconditioner
-    only). CG starts from x_init's poses (None: zero) and zero
-    intrinsics, as the reference. `reduce` as in `_solve_iterative`: the
-    per-image blocks are summed over processes before they are folded
-    into cameras. Returns (dcam, dint, dpt, CG iterations)."""
-    dt = r_w.dtype
-    op = prob.obs_point
-    free = (~prob.const_image).to(dt)[:, None]
-    gfree = (prob.cam_refine > 0).to(dt)                     # (C, G)
 
     def fold(z_img):
-        return _segment_sum(z_img, prob.img_by_cam)
+        return segment_sum(z_img, prob.img_by_cam)
 
-    JcT, JgT = Jc_w.transpose(1, 2), Jg_w.transpose(1, 2)
+    def by_image(*xs):
+        return reduce(*(segment_sum(x, prob.by_image) for x in xs))
+
+    JcT = Jc_w.transpose(1, 2)
     gp, Vinv = _point_blocks(prob, r_w, Jp_w, lam, opts)
-    Wc, Wg = JcT @ Jp_w, JgT @ Jp_w
+    Wc = JcT @ Jp_w
     Vo, gpo = Vinv[op], gp[op]
-    WcVinv, WgVinv = Wc @ Vo, Wg @ Vo
-    U_pp, U_gg, U_pg, gc, gg, corr_p, corr_g, B_p, B_g = reduce(*(
-        _segment_sum(x, prob.by_image) for x in (
-            JcT @ Jc_w, JgT @ Jg_w, JcT @ Jg_w, _mv(JcT, r_w),
-            _mv(JgT, r_w), _mv(WcVinv, gpo), _mv(WgVinv, gpo),
-            WcVinv @ Wc.transpose(1, 2), WgVinv @ Wg.transpose(1, 2))))
+    WcVinv = Wc @ Vo
+    if Jg_w is None:
+        U_pp, gc, corr_p, B_p = by_image(
+            JcT @ Jc_w, mv(JcT, r_w), mv(WcVinv, gpo),
+            WcVinv @ Wc.transpose(1, 2))
+        Wg = U_pg = U_ggd = gfree = None
+        b = Minv = ()
+    else:
+        JgT = Jg_w.transpose(1, 2)
+        Wg = JgT @ Jp_w
+        WgVinv = Wg @ Vo
+        U_pp, U_gg, U_pg, gc, gg, corr_p, corr_g, B_p, B_g = by_image(
+            JcT @ Jc_w, JgT @ Jg_w, JcT @ Jg_w, mv(JcT, r_w),
+            mv(JgT, r_w), mv(WcVinv, gpo), mv(WgVinv, gpo),
+            WcVinv @ Wc.transpose(1, 2), WgVinv @ Wg.transpose(1, 2))
+        gfree = (prob.cam_refine > 0).to(dt)                 # (C, G)
+        U_ggd = _damp(fold(U_gg), lam)                       # (C, G, G)
+        b = ((-fold(gg) - fold(corr_g)) * gfree,)
+        Minv = (_block_inverse(U_ggd - fold(B_g), gfree),)
     U_ppd = _damp(U_pp, lam)
-    U_ggd = _damp(fold(U_gg), lam)                           # (C, G, G)
-    b_p = (-gc - corr_p) * free
-    b_g = (-fold(gg) - fold(corr_g)) * gfree
-    Minv_p = _block_inverse(U_ppd - B_p, free.expand(-1, 6))
-    Minv_g = _block_inverse(U_ggd - fold(B_g), gfree)
+    b = ((-gc - corr_p) * free,) + b
+    Minv = (_block_inverse(U_ppd - B_p, free.expand(-1, 6)),) + Minv
     S = sx.system(prob, Wc, Wg, Vinv, U_ppd, U_pg, U_ggd, free, gfree)
+    x0 = None if x_init is None else (x_init * free,) + tuple(
+        torch.zeros_like(u) for u in b[1:])
 
     with obs.span("ba.pcg"):
-        (dcam, dint), k = _pcg(
-            lambda *x: sx.schur_mv(S, x, reduce),
-            lambda vp, vg: (_mv(Minv_p, vp), _mv(Minv_g, vg)),
-            (b_p, b_g),
-            None if x_init is None else (x_init * free,
-                                         torch.zeros_like(b_g)), opts)
-    dcam, dint = dcam * free, dint * gfree
+        x, k = _pcg(lambda *x: sx.schur_mv(S, x, reduce),
+                    lambda *v: tuple(mv(M, u) for M, u in zip(Minv, v)),
+                    b, x0, opts)
+    dcam = x[0] * free
+    dint = None if Wg is None else x[1] * gfree
     wtd = sx.point_sums(S, dcam, dint)
-    dpt = _mv(Vinv, gp - wtd) * (~prob.const_points)[:, None].to(dt)
+    dpt = mv(Vinv, gp - wtd) * (~prob.const_points)[:, None].to(dt)
     return dcam, dint, dpt, k
 
 
-def _build_and_solve(prob: BAProblem, pairs: Pairs | None, r, Jc, Jp, Jg, w,
-                     lam: float, opts: BAOptions, x_init):
-    """One damped Gauss-Newton step. Returns (dcam (I, 6), dint (C, 8) or
-    None, dpt (P, 3), CG iterations)."""
+def _weighted(prob: BAProblem, r, Jc, Jp, Jg, w) -> tuple:
+    """(r_w, Jc_w, Jp_w, Jg_w or None): the residuals and Jacobians times
+    the square roots of the IRLS weights w, with the pose Jacobians of
+    pinned images and the point Jacobians of held points zeroed."""
     dt = r.dtype
     sw = torch.sqrt(w)[:, None, None]
     # a pinned image's observations still constrain its points and its
@@ -630,19 +538,30 @@ def _build_and_solve(prob: BAProblem, pairs: Pairs | None, r, Jc, Jp, Jg, w,
     Jc_w = Jc * sw * (~prob.const_image).to(dt)[prob.obs_image][:, None, None]
     Jp_w = Jp * sw * (~prob.const_points).to(dt)[prob.obs_point][:, None,
                                                                  None]
-    r_w = r * sw[..., 0]
+    return r * sw[..., 0], Jc_w, Jp_w, None if Jg is None else Jg * sw
+
+
+def _pick_solver(opts: BAOptions, num_images: int) -> str:
+    """"dense" or "iterative": `solver="auto"` takes the iterative one
+    above dense_threshold images, as the reference."""
+    solver = opts.solver
+    if solver == "auto":
+        solver = "iterative" if num_images > opts.dense_threshold else "dense"
+    if solver not in ("dense", "iterative"):
+        raise ValueError(f"unknown solver {opts.solver!r}")
+    return solver
+
+
+def _build_and_solve(prob: BAProblem, pairs: Pairs | None, r, Jc, Jp, Jg, w,
+                     lam: float, opts: BAOptions, x_init):
+    """One damped Gauss-Newton step, dense when `pairs` is given.
+    Returns (dcam (I, 6), dint (C, 8) or None, dpt (P, 3), CG
+    iterations)."""
+    r_w, Jc_w, Jp_w, Jg_w = _weighted(prob, r, Jc, Jp, Jg, w)
     if pairs is None:
-        if Jg is not None:
-            return _solve_iterative_joint(prob, r_w, Jc_w, Jp_w, Jg * sw,
-                                          lam, opts, x_init)
-        dcam, dpt, k = _solve_iterative(prob, r_w, Jc_w, Jp_w, lam, opts,
-                                        x_init)
-        return dcam, None, dpt, k
-    if Jg is not None:
-        return _solve_dense_joint(prob, pairs, r_w, Jc_w, Jp_w, Jg * sw,
-                                  lam, opts) + (0,)
-    dcam, dpt = _solve_dense(prob, pairs, r_w, Jc_w, Jp_w, lam, opts)
-    return dcam, None, dpt, 0
+        return _solve_iterative(prob, r_w, Jc_w, Jp_w, Jg_w, lam, opts,
+                                x_init)
+    return _solve_dense(prob, pairs, r_w, Jc_w, Jp_w, Jg_w, lam, opts) + (0,)
 
 
 def _apply_step(prob: BAProblem, dcam, dpt, dint=None) -> BAProblem:
@@ -694,11 +613,7 @@ def solve(prob: BAProblem, opts: BAOptions = BAOptions(), max_iters=None):
 def _solve(prob: BAProblem, opts: BAOptions, max_iters):
     refine = _refine_any(opts)
     I = prob.image_qvec.shape[0]
-    solver = opts.solver
-    if solver == "auto":
-        solver = "iterative" if I > opts.dense_threshold else "dense"
-    if solver not in ("dense", "iterative"):
-        raise ValueError(f"unknown solver {opts.solver!r}")
+    solver = _pick_solver(opts, I)
     pairs = _pairs(prob, refine) if solver == "dense" else None
     bound = opts.max_iterations if max_iters is None else int(max_iters)
     early_exit = max_iters is not None or opts.ftol > 0

@@ -15,9 +15,10 @@ phase is timed on the port's own functions in `sfm/bundle_adjustment.py`
   * trial_cost: `_plain_cost`, once per LM step on the trial;
   * schur_prologue: the statements of `_solve_iterative` before its CG
     (`PROLOGUE`, with `_point_blocks`, the segment sums, `_damp` and
-    `_block_inverse`), each of which `prologue_probe` times alone;
-  * cg_matvec: one S·x of its CG (`matvec`), and cg_30_matvecs: 30 in a
-    chain;
+    `_block_inverse`), each of which `prologue_probe` times alone, and
+    the step's `schur_matvec.system`;
+  * cg_matvec: one S·x of its CG (`matvec`: `schur_matvec.schur_mv`, the
+    kernel K6 on the card), and cg_30_matvecs: 30 in a chain;
   * linear_solve_total: `_solve_iterative` whole (prologue, PCG,
     back-substitution);
   * lm_iteration: `solve` over 5 LM iterations, divided by 5.
@@ -34,7 +35,9 @@ residual_jacobian counts the per-observation gathers of its inputs
 observation) and its outputs r, Jc, Jp and w, not the temporaries of
 the camera-model chain; trial_cost the same inputs. Temporaries inside one
 expression are not counted either, so the model is a floor on the bytes
-moved. Each phase gets GB moved, its bound at the H100's 3.35 TB/s and
+moved. cg_matvec counts what the benchmark counts for a CG iteration:
+W and V⁻¹ read once, two indices per observation, x in and the product
+out. Each phase gets GB moved, its bound at the H100's 3.35 TB/s and
 the achieved GB/s (bounds null off the card). Prints one JSON object on
 stdout with the card's name and power limit.
 """
@@ -48,6 +51,8 @@ import time
 import numpy as np
 import torch
 
+from dagsfm_tpu_torch.ops import schur_matvec as sx
+from dagsfm_tpu_torch.ops.segment_sum import mv, segment_sum
 from dagsfm_tpu_torch.sfm import bundle_adjustment as ba
 from dagsfm_tpu_torch.tools import common
 
@@ -88,18 +93,14 @@ def weighted(prob, opts) -> dict:
     `_build_and_solve` weighs them."""
     r, Jc, Jp, _ = ba._residuals_and_jacobians(prob, False)
     w = ba._robust_weights(torch.sum(r * r, -1), opts.loss, opts.loss_scale)
-    dt = r.dtype
-    sw = torch.sqrt(w)[:, None, None]
-    return {"r": r, "Jc": Jc, "Jp": Jp, "w": w, "r_w": r * sw[..., 0],
-            "Jc_w": Jc * sw * (~prob.const_image).to(dt)[prob.obs_image][
-                :, None, None],
-            "Jp_w": Jp * sw * (~prob.const_points).to(dt)[prob.obs_point][
-                :, None, None]}
+    r_w, Jc_w, Jp_w, _ = ba._weighted(prob, r, Jc, Jp, None, w)
+    return {"r": r, "Jc": Jc, "Jp": Jp, "w": w, "r_w": r_w, "Jc_w": Jc_w,
+            "Jp_w": Jp_w}
 
 
 def _seg(key: str, seg: str, neg: bool = False):
     def fn(e):
-        out = ba._segment_sum(e[key], getattr(e["prob"], seg))
+        out = segment_sum(e[key], getattr(e["prob"], seg))
         return -out if neg else out
     return fn
 
@@ -116,8 +117,8 @@ def _point_inverse(e):
 # The statements of `_solve_iterative` (with `_point_blocks`) before its
 # CG, in its order: (name, output, inputs, kind, fn of the environment),
 # kind the segments it sums by, "gather" or None (a product). Each
-# computes what the solver computes, with the same operations in the same
-# order.
+# computes what the solver computes, with the same operations; the
+# solver forms every product before it sums the four by image.
 PROLOGUE = (
     ("JpT Jp", "JpTJp", ("Jp_w",), None,
      lambda e: e["Jp_w"].transpose(1, 2) @ e["Jp_w"]),
@@ -132,6 +133,8 @@ PROLOGUE = (
      lambda e: e["Jc_w"].transpose(1, 2) @ e["Jp_w"]),
     ("Vinv per observation", "Vinv_obs", ("Vinv", "op"), "gather",
      lambda e: e["Vinv"][e["op"]]),
+    ("gp per observation", "gp_obs", ("gp", "op"), "gather",
+     lambda e: e["gp"][e["op"]]),
     ("W Vinv", "WVinv", ("W", "Vinv_obs"), None,
      lambda e: e["W"] @ e["Vinv_obs"]),
     ("JcT Jc", "JcTJc", ("Jc_w",), None,
@@ -139,15 +142,11 @@ PROLOGUE = (
     ("U: sum by image", "U", ("JcTJc",), "by_image", _seg("JcTJc",
                                                           "by_image")),
     ("JcT r", "JcTr", ("Jc_w", "r_w"), None,
-     lambda e: ba._mv(e["Jc_w"].transpose(1, 2), e["r_w"])),
+     lambda e: mv(e["Jc_w"].transpose(1, 2), e["r_w"])),
     ("gc: sum by image", "gc", ("JcTr",), "by_image", _seg("JcTr",
                                                            "by_image")),
-    ("Vinv gp", "Vgp", ("Vinv", "gp"), None,
-     lambda e: ba._mv(e["Vinv"], e["gp"])),
-    ("Vinv gp per observation", "Vgp_obs", ("Vgp", "op"), "gather",
-     lambda e: e["Vgp"][e["op"]]),
-    ("W Vinv gp", "WVgp", ("W", "Vgp_obs"), None,
-     lambda e: ba._mv(e["W"], e["Vgp_obs"])),
+    ("W Vinv gp", "WVgp", ("WVinv", "gp_obs"), None,
+     lambda e: mv(e["WVinv"], e["gp_obs"])),
     ("corr: sum by image", "corr", ("WVgp",), "by_image",
      _seg("WVgp", "by_image")),
     ("W Vinv Wt", "WVinvWt", ("WVinv", "W"), None,
@@ -172,21 +171,20 @@ def environment(prob, opts, wt: dict) -> dict:
 
 
 def prologue(env: dict) -> dict:
-    """Every statement of PROLOGUE in order; env gains their outputs."""
+    """Every statement of PROLOGUE in order, then the step's Schur
+    system (`system`), as the solver builds it before its CG; env gains
+    their outputs."""
     for _, out, _, _, fn in PROLOGUE:
         env[out] = fn(env)
+    env["system"] = sx.system(env["prob"], env["W"], None, env["Vinv"],
+                              env["Ud"], None, None, env["free"], None)
     return env
 
 
 def matvec(env: dict, x):
-    """One S·x of `_solve_iterative`'s CG."""
-    prob, free = env["prob"], env["free"]
-    xm = x * free
-    y = ba._mv(env["Vinv"], ba._segment_sum(
-        ba._mtv(env["W"], xm[prob.obs_image]), prob.by_point))
-    z = ba._segment_sum(ba._mv(env["W"], y[prob.obs_point]), prob.by_image)
-    Sx = ba._mv(env["Ud"], xm) - z
-    return Sx * free + x * (1.0 - free)
+    """One S·x of `_solve_iterative`'s CG: `schur_matvec.schur_mv` on the
+    environment's system (the kernel on the card)."""
+    return sx.schur_mv(env["system"], (x,))[0]
 
 
 def nbytes(*ts) -> int:
@@ -222,20 +220,13 @@ def gathers_bytes(prob, obs_out: int = 0) -> int:
 
 
 def matvec_bytes(env: dict) -> int:
-    """One S·x: x per observation, Wᵀx, its sum by point, Vinv y, y per
-    observation, W y, its sum by image, Ud x and the result."""
+    """One S·x as the benchmark counts a CG iteration's bytes: W and
+    Vinv read once, each observation's image and point index (int64),
+    x in and the product out."""
     prob = env["prob"]
-    N, P, I = prob.obs_xy.shape[0], prob.points.shape[0], \
-        prob.image_qvec.shape[0]
+    N, I = prob.obs_xy.shape[0], prob.image_qvec.shape[0]
     s = prob.obs_xy.element_size()
-    return (N * I64 + 2 * N * 6 * s                         # x per obs
-            + nbytes(env["W"]) + N * 6 * s + N * 3 * s      # Wᵀ x
-            + seg_bytes(N, 3 * s, prob.by_point)
-            + P * 9 * s + 2 * P * 3 * s                     # Vinv y
-            + N * I64 + 2 * N * 3 * s                       # y per obs
-            + nbytes(env["W"]) + N * 3 * s + N * 6 * s      # W y
-            + seg_bytes(N, 6 * s, prob.by_image)
-            + I * 36 * s + 3 * I * 6 * s)                   # Ud x - z
+    return nbytes(env["W"], env["Vinv"]) + 2 * N * I64 + 2 * I * 6 * s
 
 
 def run(smoke: bool = False, device=None, dtype=torch.float32,
@@ -275,7 +266,7 @@ def run(smoke: bool = False, device=None, dtype=torch.float32,
     ms["cg_30_matvecs"] = t(chain)
     gbytes["cg_30_matvecs"] = 30 * gbytes["cg_matvec"]
     ms["linear_solve_total"] = t(lambda: ba._solve_iterative(
-        prob, wt["r_w"], wt["Jc_w"], wt["Jp_w"], LAM, opts, None))
+        prob, wt["r_w"], wt["Jc_w"], wt["Jp_w"], None, LAM, opts, None))
     ba.solve(prob, opts, max_iters=1)                   # warm-up
     common.sync(dev)
     t0 = time.perf_counter()

@@ -194,27 +194,3 @@ def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
     assert again["minimal_nullspace"] == after["minimal_nullspace"]
     assert again["schur_matvec"] == after["schur_matvec"]
     assert again["top2_matcher"] != after["top2_matcher"]
-
-
-def test_analysis_builds_add_only_their_defines(monkeypatch, tmp_path):
-    """tools/k3_split.py builds K3's source with K3_SPLIT set; the library
-    the port loads is built with no define at all."""
-    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
-    src = cuda_build.CSRC / "top2_matcher.cu"
-    split = cuda_build.nvcc_command(src, tmp_path / "a.so", ["K3_SPLIT=1"])
-    plain = cuda_build.nvcc_command(src, tmp_path / "b.so")
-    assert "-DK3_SPLIT=1" in split and split[-1] == str(src)
-    assert [c for c in split if not c.startswith("-D")] == \
-        [c if c != str(tmp_path / "b.so") else str(tmp_path / "a.so")
-         for c in plain]
-    assert "arch=compute_90a,code=sm_90a" in plain
-    text = src.read_text()
-    assert "#if K3_SPLIT == 1" in text and "#ifdef K3_SPLIT" in text
-
-
-def test_k3_split_tool_refuses_to_run_without_a_card():
-    from dagsfm_tpu_torch.tools import k3_split
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: the tool would run")
-    with pytest.raises(RuntimeError, match="needs a CUDA card"):
-        k3_split.run(1)

@@ -1,10 +1,12 @@
-"""Port bundle adjustment vs the JAX reference (dense Schur LM, pinhole).
+"""Port bundle adjustment vs the JAX reference (Schur LM, pinhole).
 
 The same SceneArrays go through both `make_problem`s: the kept
 observation set must be the same (Knuth-hash track decimation), the cost
-after one LM iteration equal to rtol 1e-9 (as __graft_entry__.entry's
-step), and the cost after a full solve to rtol 1e-6, because the two
-sum the normal equations in different orders."""
+after one LM iteration equal to rtol 1e-9 for the dense step (as
+__graft_entry__.entry's step) and 1e-8 for the iterative one, and the
+cost after a full solve to rtol 1e-6, because the two sum the normal
+equations in different orders. The pose-only step is the joint step with
+every intrinsic slot held."""
 import jax
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ import torch
 from dagsfm_tpu.scene import synthetic as j_syn
 from dagsfm_tpu.sfm import bundle_adjustment as j_ba
 from dagsfm_tpu_torch import interop
+from dagsfm_tpu_torch.ops import segment_sum as t_seg
 from dagsfm_tpu_torch.sfm import bundle_adjustment as t_ba
 
 torch.set_num_threads(1)
@@ -62,19 +65,23 @@ def test_make_problem_keeps_the_same_observations(max_track_len):
     np.testing.assert_array_equal(tp.const_image.numpy(), const)
 
 
+@pytest.mark.parametrize("solver,rel", [("dense", 1e-9),
+                                        ("iterative", 1e-8)])
 @pytest.mark.parametrize("loss", ["cauchy", "huber", "trivial"])
-def test_one_lm_iteration_cost(loss):
+def test_one_lm_iteration_cost(loss, solver, rel):
     arrays = _arrays()
     const = np.zeros(arrays.image_qvec.shape[0], bool)
     const[:2] = True
     jp, tp = _both(arrays, const)
-    jo = j_ba.BAOptions(max_iterations=1, loss=loss, loss_scale=1.0)
-    to = t_ba.BAOptions(max_iterations=1, loss=loss, loss_scale=1.0)
+    jo = j_ba.BAOptions(max_iterations=1, loss=loss, loss_scale=1.0,
+                        solver=solver)
+    to = t_ba.BAOptions(max_iterations=1, loss=loss, loss_scale=1.0,
+                        solver=solver)
     _, js = j_ba.solve(jp, jo)
     out, ts = t_ba.solve(tp, to)
     assert ts.initial_cost == pytest.approx(float(js.initial_cost),
                                             rel=1e-12)
-    assert ts.final_cost == pytest.approx(float(js.final_cost), rel=1e-9)
+    assert ts.final_cost == pytest.approx(float(js.final_cost), rel=rel)
     assert ts.final_cost < ts.initial_cost
     assert ts.num_iterations == int(js.num_iterations) == 1
     assert ts.lam == pytest.approx(float(js.lam), rel=1e-12)
@@ -123,48 +130,67 @@ def test_segment_sums_of_long_runs(chunk, monkeypatch):
     then the chunk sums (runs up to SEGMENT_CHUNK long in one chunk):
     the per-target sums stay right (empty targets 0), and a solve of
     pinhole cameras is unchanged by the chunk length."""
-    monkeypatch.setattr(t_ba, "SEGMENT_CHUNK", chunk)
+    monkeypatch.setattr(t_seg, "SEGMENT_CHUNK", chunk)
     rng = np.random.default_rng(0)
     keys = rng.integers(0, 7, 1000)
     keys[keys == 3] = 5                                  # an empty target
     x = rng.normal(size=(1000, 2, 3))
-    seg = t_ba.segments(keys, 8, "cpu")
+    seg = t_seg.segments(keys, 8, "cpu")
     lengths = np.bincount(keys, minlength=8)
     assert seg.chunk_counts.tolist() == np.maximum(
         -(-lengths // chunk), 1).tolist()
     assert int(seg.chunks.max()) == min(chunk, lengths.max())
     assert int(seg.chunks.sum()) == 1000
     want = np.stack([x[keys == k].sum(0) for k in range(8)])
-    np.testing.assert_allclose(t_ba._segment_sum(torch.as_tensor(x), seg)
+    np.testing.assert_allclose(t_seg.segment_sum(torch.as_tensor(x), seg)
                                .numpy(), want, rtol=1e-12, atol=1e-12)
     arrays = interop.scene_arrays(_arrays(seed=5)._asdict(), device="cpu")
     out, st = t_ba.solve(t_ba.make_problem(arrays), t_ba.BAOptions(
         max_iterations=3))
-    monkeypatch.setattr(t_ba, "SEGMENT_CHUNK", 256)
+    monkeypatch.setattr(t_seg, "SEGMENT_CHUNK", 256)
     out2, st2 = t_ba.solve(t_ba.make_problem(arrays), t_ba.BAOptions(
         max_iterations=3))
     assert st.final_cost == pytest.approx(st2.final_cost, rel=1e-12)
     assert t_ba.all_pinhole(arrays)
 
 
-def test_segment_sums_tool_times_both_ways():
-    """tools/segment_sums.py on tiny problems (on the CPU): every problem
-    solved in chunks and in one pass, the two costs equal, each grouping
-    of the solve timed both ways; SEGMENT_CHUNK is restored."""
-    from dagsfm_tpu_torch.tools import segment_sums
-    before = t_ba.SEGMENT_CHUNK
-    res = segment_sums.run(torch.device("cpu"), lm=1, dense_images=6,
-                           dense_points=150, ba_cameras=12, ba_points=300)
-    assert t_ba.SEGMENT_CHUNK == before
-    assert set(res) == {"dense joint", "iterative joint", "iterative plain"}
-    for r in res.values():
-        assert r["lm_iterations"] == 1 and np.isfinite(r["final_cost"])
-        for mode in ("chunked", "one pass"):
-            assert len(r["s_per_lm_iteration"][mode]) == 2
-            assert {"by_image", "by_point"} <= set(r["segment_sum_ms"][mode])
-    assert res["dense joint"]["segment_sum_ms"]["chunked"]["pairs_gg"][
-        "longest_run"] == res["dense joint"]["segment_sum_ms"]["chunked"][
-            "pairs_gg"]["rows"]                       # one shared camera
+def _one_step(prob, solver: str, joint: bool, x_init=None):
+    """One weighted step of `solver` at lam 1e-4, joint (with Jg) or
+    pose-only."""
+    opts = t_ba.BAOptions(solver=solver)
+    r, Jc, Jp, Jg = t_ba._residuals_and_jacobians(prob, joint)
+    w = t_ba._robust_weights(torch.sum(r * r, -1), opts.loss,
+                             opts.loss_scale)
+    pairs = t_ba._pairs(prob, joint) if solver == "dense" else None
+    return t_ba._build_and_solve(prob, pairs, r, Jc, Jp, Jg, w, 1e-4, opts,
+                                 x_init)
+
+
+@pytest.mark.parametrize("solver,rtol", [("dense", 1e-9),
+                                         ("iterative", 1e-12)])
+def test_pose_only_step_is_the_joint_step_with_every_slot_held(solver,
+                                                                rtol):
+    """With cam_refine all 0 the joint step's Jg is zero and its
+    intrinsics solve as the identity, so its poses and points are the
+    pose-only step's: to rounding for the dense step, whose Cholesky runs
+    on the larger matrix, and to 1e-12 for the iterative one, which takes
+    as many CG iterations from the same warm start."""
+    arrays = interop.scene_arrays(_arrays(seed=3)._asdict(), device="cpu")
+    const = np.zeros(arrays.image_qvec.shape[0], bool)
+    const[:2] = True
+    prob = t_ba.make_problem(arrays, const_image=const)
+    assert not prob.cam_refine.any()
+    x_init = torch.as_tensor(np.random.default_rng(7).normal(
+        0, 1e-3, (prob.image_qvec.shape[0], 6)))
+    dcam, dint, dpt, k = _one_step(prob, solver, False, x_init)
+    jcam, jint, jpt, jk = _one_step(prob, solver, True, x_init)
+    assert dint is None and torch.count_nonzero(jint) == 0
+    assert jint.shape == prob.cam_refine.shape
+    assert k == jk and (k > 0) == (solver == "iterative")
+    assert float(dcam.abs().max()) > 0 and float(dpt.abs().max()) > 0
+    np.testing.assert_allclose(jcam.numpy(), dcam.numpy(), rtol=rtol,
+                               atol=0)
+    np.testing.assert_allclose(jpt.numpy(), dpt.numpy(), rtol=rtol, atol=0)
 
 
 def test_failed_factorisations_give_nan_as_the_reference():

@@ -120,13 +120,44 @@ def test_port_sources_never_name_jax():
     assert not offenders, offenders
 
 
+def test_ops_import_nothing_of_sfm_and_the_sums_live_in_ops():
+    """No module under ops/ imports dagsfm_tpu_torch.sfm, at the top or
+    inside a function, and the fixed-order sum is defined in one place:
+    ops/segment_sum.py."""
+    import ast
+    port = os.path.join(ROOT, "dagsfm_tpu_torch")
+    up, defs = [], []
+    for d, _, fs in os.walk(port):
+        for f in (f for f in fs if f.endswith(".py")):
+            rel = os.path.relpath(os.path.join(d, f), port)
+            with open(os.path.join(d, f)) as src:
+                tree = ast.parse(src.read())
+            for node in ast.walk(tree):
+                if isinstance(node, ast.ImportFrom) and node.module:
+                    names = [node.module] + [f"{node.module}.{a.name}"
+                                             for a in node.names]
+                elif isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                else:
+                    names = []
+                if rel.startswith("ops" + os.sep) and any(
+                        n == "dagsfm_tpu_torch.sfm" or
+                        n.startswith("dagsfm_tpu_torch.sfm.") for n in names):
+                    up.append(rel)
+                if isinstance(node, ast.FunctionDef) and \
+                        node.name.lstrip("_") == "segment_sum":
+                    defs.append(rel)
+    assert not up, up
+    assert defs == [os.path.join("ops", "segment_sum.py")], defs
+
+
 def test_tools_help_runs_without_jax_or_reference():
     """`python -m dagsfm_tpu_torch.tools.<tool> --help` for every ported
     tools/ program, under the guard and in one process."""
     tools = sorted(f[:-3] for f in os.listdir(
         os.path.join(ROOT, "dagsfm_tpu_torch", "tools"))
         if f.endswith(".py") and f not in ("__init__.py", "common.py"))
-    assert len(tools) >= 10
+    assert len(tools) == 8           # the JAX package's eight tools
     head = _GUARD.split("import dagsfm_tpu_torch")[0]
     out = _run(head + (
         "import contextlib, io, runpy\n"

@@ -1,6 +1,7 @@
 """Bundle adjustment's Schur product S·x (ops/schur_matvec.py) on the
 CPU: the plain version is the PCG's product of before bit for bit, in
-both iterative solvers, and so is the back-substitution's point sum; it
+the iterative step's pose-only and joint forms, and so is the
+back-substitution's point sum; it
 equals S = U - W V⁻¹ Wᵀ formed densely, pinned images and held slots
 passed through; the kernel's index arrays walk every observation once
 and, summed as the kernel's passes sum them, give the same product; a
@@ -14,6 +15,8 @@ import torch
 
 from chip_smoke import schur_case
 from dagsfm_tpu_torch.ops import schur_matvec as sx
+from dagsfm_tpu_torch.ops.segment_sum import (SEGMENT_CHUNK, mtv, mv,
+                                              segment_sum)
 from dagsfm_tpu_torch.scene import cameras as t_cm
 from dagsfm_tpu_torch.scene import synthetic as t_syn
 from dagsfm_tpu_torch.sfm import bundle_adjustment as ba
@@ -24,38 +27,37 @@ CPU = torch.device("cpu")
 
 
 def product_of_before(S, x):
-    """The PCG's S·x as `_solve_iterative` and `_solve_iterative_joint`
+    """The PCG's S·x as the iterative step's pose-only and joint forms
     wrote it before the kernel."""
     prob, free, gfree = S.prob, S.free, S.gfree
     oi, op, oc = prob.obs_image, prob.obs_point, prob.obs_cam
     if S.Wg is None:
         xm = x[0] * free
-        y = ba._mv(S.Vinv, ba._segment_sum(ba._mtv(S.Wc, xm[oi]),
-                                           prob.by_point))
-        z = ba._segment_sum(ba._mv(S.Wc, y[op]), prob.by_image)
-        return ((ba._mv(S.U_pp, xm) - z) * free + x[0] * (1.0 - free),)
+        y = mv(S.Vinv, segment_sum(mtv(S.Wc, xm[oi]), prob.by_point))
+        z = segment_sum(mv(S.Wc, y[op]), prob.by_image)
+        return ((mv(S.U_pp, xm) - z) * free + x[0] * (1.0 - free),)
 
     def fold(z_img):
-        return ba._segment_sum(z_img, prob.img_by_cam)
+        return segment_sum(z_img, prob.img_by_cam)
 
     xp, xg = x
     xpm, xgm = xp * free, xg * gfree
-    tmp = ba._segment_sum(ba._mtv(S.Wc, xpm[oi]) + ba._mtv(S.Wg, xgm[oc]),
-                          prob.by_point)
-    yo = ba._mv(S.Vinv, tmp)[op]
-    zc = ba._segment_sum(ba._mv(S.Wc, yo), prob.by_image)
-    zg = ba._segment_sum(ba._mv(S.Wg, yo), prob.by_image)
-    Sxp = ba._mv(S.U_pp, xpm) + ba._mv(S.U_pg, xgm[prob.image_camidx]) - zc
-    Sxg = ba._mv(S.U_gg, xgm) + fold(ba._mtv(S.U_pg, xpm)) - fold(zg)
+    tmp = segment_sum(mtv(S.Wc, xpm[oi]) + mtv(S.Wg, xgm[oc]),
+                      prob.by_point)
+    yo = mv(S.Vinv, tmp)[op]
+    zc = segment_sum(mv(S.Wc, yo), prob.by_image)
+    zg = segment_sum(mv(S.Wg, yo), prob.by_image)
+    Sxp = mv(S.U_pp, xpm) + mv(S.U_pg, xgm[prob.image_camidx]) - zc
+    Sxg = mv(S.U_gg, xgm) + fold(mtv(S.U_pg, xpm)) - fold(zg)
     return (Sxp * free + xp * (1.0 - free), Sxg * gfree + xg * (1.0 - gfree))
 
 
 def back_substitution_of_before(S, x):
     prob = S.prob
-    t = ba._mtv(S.Wc, x[0][prob.obs_image])
+    t = mtv(S.Wc, x[0][prob.obs_image])
     if S.Wg is not None:
-        t = t + ba._mtv(S.Wg, x[1][prob.obs_cam])
-    return ba._segment_sum(t, prob.by_point)
+        t = t + mtv(S.Wg, x[1][prob.obs_cam])
+    return segment_sum(t, prob.by_point)
 
 
 @pytest.mark.parametrize("joint", [False, True])
@@ -72,8 +74,8 @@ def test_plain_version_is_the_product_of_before(joint):
 
 @pytest.mark.parametrize("joint", [False, True])
 def test_the_solvers_pcg_takes_the_helper(monkeypatch, joint):
-    """The S·x that each iterative solver hands its PCG is the helper's,
-    bit for bit the product of before, on a real problem."""
+    """The S·x that each form of the iterative step hands its PCG is the
+    helper's, bit for bit the product of before, on a real problem."""
     seen = []
 
     def keep(S_mv, *a):
@@ -176,7 +178,7 @@ def test_kernel_index_sums_to_the_product(joint):
     y = np.einsum("pab,pb->pa", n(S.Vinv), t)
     irows, roff, coff = n(ix.image_rows), n(ix.chunk_off), n(ix.image_chunks)
     assert sorted(irows[:, 0]) == list(range(N)) and roff[-1] == N
-    assert np.diff(roff).max() <= ba.SEGMENT_CHUNK and coff[-1] == len(roff) - 1
+    assert np.diff(roff).max() <= SEGMENT_CHUNK and coff[-1] == len(roff) - 1
     K = len(roff) - 1
     chunk = np.repeat(np.arange(K), np.diff(roff))
     img = np.repeat(np.arange(I), np.diff(coff))

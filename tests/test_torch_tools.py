@@ -6,9 +6,10 @@ bit, and on those pairs, with the reference's sample draws replayed into
 `classify_pairs` gives every pair the reference's configuration and
 inlier count; `run` returns every phase the reference tool prints.
 ba_phase_profile and prologue_probe at a tiny size in float64: each
-phase's tensors equal what `_solve_iterative` computes inside it (rel
-1e-12), the full solve's final cost the JAX package's `ba.solve` (rel
-1e-7), and the byte model a count written out from the arrays' shapes.
+phase's tensors, and the S·x its `matvec` runs (`schur_matvec.schur_mv`),
+equal what `_solve_iterative` computes inside it (rel 1e-12), the full
+solve's final cost the JAX package's `ba.solve` (rel 1e-7), and the byte
+model a count written out from the arrays' shapes.
 multiproc_smoke on gloo passes; scaling_curves at D = 1 and 2 agrees
 across D to rel 1e-9 and its ablated twins complete. No reference tool
 runs here, and the repo's records of the JAX tools stay byte for byte.
@@ -201,15 +202,13 @@ def test_byte_model_equals_a_count_from_the_shapes():
     s = 8
     prologue = (15 * N * s + _seg(N, 9, P, Kp, s) + 11 * N * s
                 + _seg(N, 3, P, Kp, s) + 18 * P * s + 36 * N * s
-                + 8 * N + 18 * N * s + 45 * N * s + 48 * N * s
-                + _seg(N, 36, I, Ki, s) + 20 * N * s + _seg(N, 6, I, Ki, s)
-                + 15 * P * s + 8 * N + 6 * N * s + 27 * N * s
+                + 8 * N + 18 * N * s + 8 * N + 6 * N * s + 45 * N * s
+                + 48 * N * s + _seg(N, 36, I, Ki, s) + 20 * N * s
+                + _seg(N, 6, I, Ki, s) + 27 * N * s
                 + _seg(N, 6, I, Ki, s) + 72 * N * s + _seg(N, 36, I, Ki, s)
                 + 72 * I * s + 19 * I * s + 109 * I * s)
     assert sum(bpp.step_bytes(env, st) for st in bpp.PROLOGUE) == prologue
-    matvec = (8 * N + 12 * N * s + 27 * N * s + _seg(N, 3, P, Kp, s)
-              + 15 * P * s + 8 * N + 6 * N * s + 27 * N * s
-              + _seg(N, 6, I, Ki, s) + 54 * I * s)
+    matvec = 18 * N * s + 9 * P * s + 16 * N + 12 * I * s
     assert bpp.matvec_bytes(env) == matvec
     gathers = N * (24 * s + 32)
     assert bpp.gathers_bytes(prob) == gathers
